@@ -12,7 +12,8 @@ no result:
            per source, all at once).
   kernels  each hand-written kernel against its plain PyTorch version
            (impl="torch") on the card, and against the fp32 oracle of
-           kernels/ref.py: grouped heads G in {1, 4, 8}, ragged lengths,
+           kernels/ref.py, at the target's and the draft's engine shapes and
+           at small ones: grouped heads G in {1, 4, 8}, ragged lengths,
            odd S, a ctx == 0 chunk, pages shared with refcount > 1, a pool
            poisoned with finite +-1e4, bf16 and fp32. Then kernel, plain
            version and one PyTorch library call (the yardstick; the port
@@ -24,9 +25,9 @@ no result:
            (serialized paged and dense, continuous paged), dpd, spec, dsd.
            The kernels' launch counts are zeroed before and read after;
            every kernel must have launched. Then first-token logits of the
-           kernel path are held against the plain path on the card, and
-           torch.profiler records one more run (device busy share, top
-           kernels by device time).
+           kernel path (target and draft) are held against the plain path
+           on the card, and torch.profiler records one more run (device
+           busy share, top kernels by device time).
 
 The engine's modelled clock, energy and carbon are the cost model's figures
 for the chips it names (a100 new, t4 old), not measurements of this card.
@@ -48,21 +49,30 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 
-# tolerances, as max|kernel - other| / max|other|:
+# Tolerances are on the row-normalised error: for each output row (one
+# query's head vector, or one sequence's logits) max|kernel - other| over the
+# row, divided by the RMS of the other's row; the largest over all rows. A
+# causal row that attends to one key has |o| ~ 1 while one over ~400 keys has
+# |o| ~ 0.05, so a limit relative to the whole tensor's max would let the
+# late rows be wrong by more than their own size. Each limit is about three
+# times the largest reading on an H100 (PERF.md, PR 11 findings).
 #   fp32: the kernel and the plain version differ only in summation order
+#         (largest reading 3.6e-6)
 #   bf16: the plain version rounds its scores and probabilities to bf16
-#         before the value product; the kernel keeps them in fp32
-TOL_PLAIN = {"float32": {"flash_attention": 2e-4, "decode_attention": 1e-4,
-                         "paged_decode_attention": 1e-4,
-                         "paged_prefill_attention": 2e-4},
-             "bfloat16": 5e-2}
+#         before the value product; the kernel keeps them in fp32 (largest
+#         readings: flash and paged prefill 6.3e-2, the decodes 2.7e-2)
+TOL_PLAIN = {"float32": 2e-5,
+             "bfloat16": {"flash_attention": 2e-1, "decode_attention": 8e-2,
+                          "paged_decode_attention": 8e-2,
+                          "paged_prefill_attention": 2e-1}}
 #   against the fp32 oracle a bf16 kernel differs by its output rounding only
-TOL_ORACLE_BF16 = 1e-2
-#   first-token logits of llama-7b, kernel path vs plain path, both bf16:
-#   each of the 32 layers adds the ~5e-3 bf16 difference of one attention
-#   output (the kernels phase's bf16 cases); independent across layers they
-#   add like sqrt(32) * 5e-3 ~ 3e-2, and the tolerance leaves a 3x margin
-TOL_LOGITS = 1e-1
+#   (largest readings: flash 1.3e-2, paged prefill 2.2e-2, the decodes
+#   1.3e-3; half an ulp of an element ~3x its row's RMS is 5.9e-3)
+TOL_ORACLE_BF16 = {"flash_attention": 4e-2, "decode_attention": 1e-2,
+                   "paged_decode_attention": 1e-2, "paged_prefill_attention": 6e-2}
+#   first-token logits, kernel path vs plain path, both bf16: every layer
+#   adds one attention output's bf16 difference (largest reading 9.4e-2)
+TOL_LOGITS = 2.5e-1
 
 PROMPT_LENS = (287, 333, 402, 451)
 MAX_NEW = 16
@@ -106,9 +116,11 @@ def phase_build():
 
 # ---------------------------------------------------------------- helpers
 def _rel(a, b) -> tuple[float, float]:
-    """(max abs error, max abs error / max |b|)."""
-    diff = (a.float() - b.float()).abs().max().item()
-    return diff, diff / (b.float().abs().max().item() + 1e-6)
+    """(max abs error, largest row-normalised error): rows are the last
+    axis, each row's max|a - b| over the RMS of b's row."""
+    d = (a.float() - b.float()).abs().reshape(-1, b.shape[-1])
+    rms = b.float().reshape(-1, b.shape[-1]).pow(2).mean(-1).sqrt()
+    return d.max().item(), (d.amax(-1) / rms.clamp_min(1e-6)).max().item()
 
 
 def _time_ms(fn, iters: int = 20) -> float:
@@ -138,6 +150,7 @@ class KernelCheck:
     def __init__(self, name, source, replaces, kernel):
         self.name, self.source, self.replaces, self.kernel = name, source, replaces, kernel
         self.max_abs_err = 0.0
+        self.worst = {}          # dtype -> (largest error vs plain, vs oracle)
         self.cases = 0
         self.timing = {}
         self.engine_launches = 0
@@ -153,13 +166,15 @@ class KernelCheck:
         tol = tol[self.name] if isinstance(tol, dict) else tol
         abs_err, rel = _rel(got, plain)
         _, rel_o = _rel(got, oracle)
-        tol_o = TOL_ORACLE_BF16 if key == "bfloat16" else tol
+        tol_o = TOL_ORACLE_BF16[self.name] if key == "bfloat16" else tol
         log(f"  {self.name} {what}: vs plain {rel:.2e} (tol {tol:g}), "
             f"vs fp32 oracle {rel_o:.2e} (tol {tol_o:g})")
         if rel > tol or rel_o > tol_o:
             raise RuntimeError(f"{self.name} {what}: kernel disagrees "
                                f"(vs plain {rel:.3e}, vs oracle {rel_o:.3e})")
         self.max_abs_err = max(self.max_abs_err, abs_err)
+        w = self.worst.get(key, (0.0, 0.0))
+        self.worst[key] = (max(w[0], rel), max(w[1], rel_o))
         self.cases += 1
 
     def record(self) -> dict:
@@ -198,8 +213,12 @@ def phase_kernels(gen):
     def ints(values):
         return torch.tensor(values, dtype=torch.int32, device=cuda)
 
-    tgt = get_config("llama-7b")
+    # the target's shapes, and the llama-1b draft's (spec/dsd draft prefill,
+    # draft decode steps and draft chunks)
+    tgt, dft = get_config("llama-7b"), get_config("llama-1b")
     kvh7, g7, d7 = tgt.attn.num_kv_heads, tgt.attn.num_heads // tgt.attn.num_kv_heads, tgt.attn.head_dim
+    kvh1, g1, d1 = dft.attn.num_kv_heads, dft.attn.num_heads // dft.attn.num_kv_heads, dft.attn.head_dim
+    spec_k = 4      # draft tokens per spec round in the engine phase
     checks = {
         "flash_attention": KernelCheck(
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -218,7 +237,8 @@ def phase_kernels(gen):
 
     # ---- flash: (B, S, H, KV, D, dtype); odd S, G in {1, 4, 8}
     c = checks["flash_attention"]
-    for b, s, h, kv, d, dt in [(1, max(PROMPT_LENS), 32, kvh7, d7, bf16),
+    for b, s, h, kv, d, dt in [(1, max(PROMPT_LENS), kvh7 * g7, kvh7, d7, bf16),
+                               (1, max(PROMPT_LENS), kvh1 * g1, kvh1, d1, bf16),
                                (2, 77, 8, 8, 128, f32), (2, 129, 16, 4, 64, bf16),
                                (1, 200, 32, 4, 128, f32), (3, 33, 8, 1, 32, f32)]:
         q, k, v = rand(b, s, h, d, dtype=dt), rand(b, s, kv, d, dtype=dt), rand(b, s, kv, d, dtype=dt)
@@ -245,6 +265,9 @@ def phase_kernels(gen):
     main_pos = [n + MAX_NEW // 2 for n in PROMPT_LENS]
     for b, kv, g, s, d, dt, pos in [
             (4, kvh7, g7, max(main_pos) + 1, d7, bf16, main_pos),
+            # a spec round's draft steps: the gathered cache is k + 1 wider
+            (4, kvh1, g1, max(main_pos) + spec_k + 1, d1, bf16,
+             [x + spec_k for x in main_pos]),
             (3, 2, 4, 100, 64, f32, [0, 50, 99]),
             (2, 4, 8, 333, 128, f32, [1, 332]),
             (2, 8, 1, 65, 32, bf16, [64, 31])]:
@@ -352,6 +375,8 @@ def phase_kernels(gen):
     for cc, ctx, kv, g, d, bs, dt in [
             (chunk, 0, kvh7, g7, d7, BLOCK, bf16),
             (max(PROMPT_LENS) - chunk, chunk, kvh7, g7, d7, BLOCK, bf16),
+            (chunk, 0, kvh1, g1, d1, BLOCK, bf16),
+            (max(PROMPT_LENS) - chunk, chunk, kvh1, g1, d1, BLOCK, bf16),
             (37, 13, 2, 4, 64, 8, f32), (20, 0, 4, 8, 128, 16, f32),
             (150, 45, 2, 2, 128, 8, f32), (9, 100, 1, 8, 32, 16, bf16)]:
         nb = max(-(-ctx // bs), 1)
@@ -375,7 +400,7 @@ def phase_kernels(gen):
             q_tm, kpg, vpg, tbl, ctx, ks[0].transpose(0, 1), vs[0].transpose(0, 1), group=g)
         oracle = oracle.reshape(kv, cc, g, d).permute(1, 0, 2, 3).reshape(1, cc, kv * g, d)
         c.hold(got, plain, oracle, dt, f"C={cc} ctx={ctx} KV={kv} G={g} D={d} bs={bs} {dt}")
-        if (cc, ctx) == (max(PROMPT_LENS) - chunk, chunk):
+        if (cc, ctx, kv) == (max(PROMPT_LENS) - chunk, chunk, kvh7):
             timed = (q, kpg, vpg, table, ctx, ks, vs)
     c.timing = {
         "ms": _time_ms(lambda: ops.paged_prefill_attention(*timed)),
@@ -392,6 +417,9 @@ def phase_kernels(gen):
         log(f"{ck.name}: {ck.cases} cases held; kernel {ck.timing['ms']:.4f} ms, "
             f"plain {ck.timing['plain_ms']:.4f} ms, library {ck.timing['library_ms']}, "
             f"bound {ck.timing['bound_ms']:.4f} ms ({ck.timing['bound_by']})")
+        print(f"{ck.name}: largest row-normalised error (vs plain, vs fp32 oracle): "
+              + ", ".join(f"{k} {p:.3e}, {o:.3e}" for k, (p, o) in sorted(ck.worst.items())),
+              flush=True)
     return checks
 
 
@@ -477,34 +505,37 @@ def phase_engine(checks):
     if idle:
         raise RuntimeError(f"kernels never launched on the engine path: {idle}")
 
-    # first-token logits, kernel path vs the plain path, on the card: whole-
-    # prompt prefill (flash) and a two-chunk paged prefill (paged prefill)
+    # first-token logits, kernel path vs the plain path, on the card, for the
+    # target and the draft: whole-prompt prefill (flash) and a two-chunk
+    # paged prefill (paged prefill)
     plain = ExecConfig(impl="torch")
     tok = torch.from_numpy(prompts[-1]).to(cuda)
-    got, _ = backbone.prefill(tparams, {"tokens": tok[None]}, tcfg)
-    want, _ = backbone.prefill(tparams, {"tokens": tok[None]}, tcfg, plain)
-    chunked = []
-    for ex in (ExecConfig(), plain):
-        pool = PagedKVPool(tcfg, pool_blocks, BLOCK, dtype=torch.bfloat16, device=cuda)
-        pool.allocate(0, len(tok))
-        ctx0 = 256
-        for lo, hi in ((0, ctx0), (ctx0, len(tok))):
-            table = pool.device_tables([0], max(pool.blocks_needed(lo), 1))[0]
-            logits, kc, vc = backbone.prefill_chunk_paged(
-                tparams, pool.k, pool.v, table, lo, tok[lo:hi], tcfg, ex)
-            pool.scatter_chunk(0, kc, vc, lo)
-        chunked.append(logits)
-        del pool
-    for what, a, b in (("prefill", got, want), ("chunked prefill", *chunked)):
-        if not (torch.isfinite(a.float()).all() and torch.isfinite(b.float()).all()):
-            raise RuntimeError(f"{what}: non-finite first-token logits")
-        _, rel = _rel(a, b)
-        cos = torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1).min()
-        print(f"first-token logits, {what}: kernel vs plain on the card {rel:.3e} "
-              f"(tol {TOL_LOGITS:g}), cosine {float(cos):.6f}; argmax "
-              f"{int(a.argmax())} vs {int(b.argmax())}", flush=True)
-        if rel > TOL_LOGITS:
-            raise RuntimeError(f"{what}: kernel path logits disagree ({rel:.3e})")
+    for cfg, params in ((tcfg, tparams), (dcfg, dparams)):
+        got, _ = backbone.prefill(params, {"tokens": tok[None]}, cfg)
+        want, _ = backbone.prefill(params, {"tokens": tok[None]}, cfg, plain)
+        chunked = []
+        for ex in (ExecConfig(), plain):
+            pool = PagedKVPool(cfg, pool_blocks, BLOCK, dtype=torch.bfloat16, device=cuda)
+            pool.allocate(0, len(tok))
+            ctx0 = 256
+            for lo, hi in ((0, ctx0), (ctx0, len(tok))):
+                table = pool.device_tables([0], max(pool.blocks_needed(lo), 1))[0]
+                logits, kc, vc = backbone.prefill_chunk_paged(
+                    params, pool.k, pool.v, table, lo, tok[lo:hi], cfg, ex)
+                pool.scatter_chunk(0, kc, vc, lo)
+            chunked.append(logits)
+            del pool
+        for what, a, b in ((f"{cfg.name} prefill", got, want),
+                           (f"{cfg.name} chunked prefill", *chunked)):
+            if not (torch.isfinite(a.float()).all() and torch.isfinite(b.float()).all()):
+                raise RuntimeError(f"{what}: non-finite first-token logits")
+            _, rel = _rel(a, b)
+            cos = torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1).min()
+            print(f"first-token logits, {what}: kernel vs plain on the card {rel:.3e} "
+                  f"(row-normalised, tol {TOL_LOGITS:g}), cosine {float(cos):.6f}; "
+                  f"argmax {int(a.argmax())} vs {int(b.argmax())}", flush=True)
+            if rel > TOL_LOGITS:
+                raise RuntimeError(f"{what}: kernel path logits disagree ({rel:.3e})")
 
     # where one run's time goes: device busy share and the top kernels, from
     # torch.profiler over the standalone continuous paged run

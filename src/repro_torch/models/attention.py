@@ -45,11 +45,6 @@ def _plain_only(x, what: str) -> None:
                          "on the card attention goes through the kernels")
 
 
-def _impl(impl: str, exec_cfg: ExecConfig) -> str:
-    """An explicit impl argument wins over the exec config's."""
-    return exec_cfg.impl if impl == "auto" else impl
-
-
 # the reference's `_attend_block` (q: (B, qb, H, D) at offset q_offset)
 _attend_block = attend_block
 
@@ -153,7 +148,7 @@ def attention_decode_block(p: dict, x, k_cache, v_cache, pos, positions_rope,
 def attention_paged_decode_block(p: dict, x, k_pages, v_pages, tables, lengths,
                                  positions_rope, cfg: ModelConfig,
                                  exec_cfg: ExecConfig = DEFAULT_EXEC,
-                                 max_len: int = 0, impl: str = "auto"):
+                                 max_len: int = 0):
     """Gather-free decode step against one pool layer: the pages and block
     tables go straight to `kops.paged_decode_attention`; the step's own
     (k, v) (B, 1, KV, D) come back for the caller's `scatter_append`."""
@@ -162,14 +157,13 @@ def attention_paged_decode_block(p: dict, x, k_pages, v_pages, tables, lengths,
     q, k, v = _qkv(p, x, a)
     q, k = _rope(q, k, positions_rope, a)
     o = kops.paged_decode_attention(q, k_pages, v_pages, tables, lengths, k, v,
-                                    max_len=max_len, impl=_impl(impl, exec_cfg))
+                                    max_len=max_len, impl=exec_cfg.impl)
     return o.reshape(b, 1, -1) @ p["wo"], k, v
 
 
 def attention_paged_chunk_block(p: dict, x, k_pages, v_pages, table, ctx0: int,
                                 cfg: ModelConfig,
-                                exec_cfg: ExecConfig = DEFAULT_EXEC,
-                                impl: str = "auto"):
+                                exec_cfg: ExecConfig = DEFAULT_EXEC):
     """Fused chunked prefill: C new tokens x (1, C, D_model) of one sequence
     attend over its paged cached context (ctx0 tokens) plus themselves.
     Returns (out, k, v) with k/v (1, C, KV, D) for `scatter_chunk`."""
@@ -179,5 +173,5 @@ def attention_paged_chunk_block(p: dict, x, k_pages, v_pages, table, ctx0: int,
     positions = ctx0 + torch.arange(c, device=x.device)[None, :]
     q, k = _rope(q, k, positions, a)
     o = kops.paged_prefill_attention(q, k_pages, v_pages, table, ctx0, k, v,
-                                     impl=_impl(impl, exec_cfg))
+                                     impl=exec_cfg.impl)
     return o.reshape(1, c, -1) @ p["wo"], k, v

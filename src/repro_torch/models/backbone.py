@@ -124,7 +124,7 @@ def serve_step(params: Params, cache: Cache, tokens, cfg: ModelConfig,
 
 def serve_step_paged(params: Params, pages_k, pages_v, tables, lengths, tokens,
                      cfg: ModelConfig, exec_cfg: ExecConfig = DEFAULT_EXEC,
-                     max_len: int = 0, impl: str = "auto"):
+                     max_len: int = 0):
     """One gather-free decode step straight off PagedKVPool storage.
 
     pages_k/pages_v: (L, NBp, KV, bs, D) - the pool's page arrays; tables:
@@ -139,8 +139,7 @@ def serve_step_paged(params: Params, pages_k, pages_v, tables, lengths, tokens,
     for l, lp in enumerate(params["layers"]):
         h, kt, vt = attention_paged_decode_block(
             lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps), pages_k[l],
-            pages_v[l], tables, lengths, prope, cfg, exec_cfg, max_len=max_len,
-            impl=impl)
+            pages_v[l], tables, lengths, prope, cfg, exec_cfg, max_len=max_len)
         x = _ffn(lp, x + h, cfg)
         kts.append(kt[:, 0])
         vts.append(vt[:, 0])
@@ -150,7 +149,7 @@ def serve_step_paged(params: Params, pages_k, pages_v, tables, lengths, tokens,
 
 def prefill_chunk_paged(params: Params, pages_k, pages_v, table, ctx0: int,
                         tokens, cfg: ModelConfig,
-                        exec_cfg: ExecConfig = DEFAULT_EXEC, impl: str = "auto"):
+                        exec_cfg: ExecConfig = DEFAULT_EXEC):
     """Incremental chunked prefill of ONE sequence: tokens (C,) at positions
     [ctx0, ctx0 + C) attend over its ctx0 cached tokens (through `table`
     (NB,)) plus themselves. Returns (last_logits (1, V), k_c (L, KV, C, D),
@@ -161,7 +160,7 @@ def prefill_chunk_paged(params: Params, pages_k, pages_v, table, ctx0: int,
     for l, lp in enumerate(params["layers"]):
         h, kt, vt = attention_paged_chunk_block(
             lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps), pages_k[l],
-            pages_v[l], table, ctx0, cfg, exec_cfg, impl=impl)
+            pages_v[l], table, ctx0, cfg, exec_cfg)
         x = _ffn(lp, x + h, cfg)
         kcs.append(kt[0].transpose(0, 1))
         vcs.append(vt[0].transpose(0, 1))
