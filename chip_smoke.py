@@ -15,24 +15,39 @@ no result:
            kernels/ref.py, at the target's and the draft's engine shapes and
            at small ones: grouped heads G in {1, 4, 8}, ragged lengths,
            odd S, a ctx == 0 chunk, pages shared with refcount > 1, a pool
-           poisoned with finite +-1e4, bf16 and fp32. Then kernel, plain
-           version and one PyTorch library call (the yardstick; the port
-           never calls it) are timed at the shapes the engine runs.
+           poisoned with finite +-1e4, bf16 and fp32; flash and dense decode
+           also at zamba2's shared-attention shapes (head_dim 80); the WKV
+           and SSD recurrences at the recurrent phase's prefill and extend
+           shapes from a nonzero state, and at small ones (T in {1, 16, 17,
+           40}, H in {1, 3}). Then kernel, plain version and one PyTorch
+           library call (the yardstick; the port never calls it) are timed
+           at the shapes the path runs.
   engine   ServingEngine at the full width of the paper's llama-7b target
            (bf16, random weights from the port's seeded init), with a
            llama-1b draft for spec/dsd: 4 requests, ragged prompts of a few
            hundred tokens, 16 new tokens each, greedy. standalone
            (serialized paged and dense, continuous paged), dpd, spec, dsd.
            The kernels' launch counts are zeroed before and read after;
-           every kernel must have launched. Then first-token logits of the
-           kernel path (target and draft) are held against the plain path
-           on the card, and torch.profiler records one more run (device
-           busy share, top kernels by device time).
+           Then first-token logits of the kernel path (target and draft)
+           are held against the plain path on the card, and torch.profiler
+           records one more run (device busy share, top kernels by device
+           time).
+  recurrent  rwkv6-7b (ssm) and then zamba2-2.7b (hybrid) at full width
+           (bf16, seeded random weights) through the backbone's entry
+           points: prefill of 4 prompts x 451 tokens, 16 greedy serve_steps,
+           and an extend_step of 4 tokens from the saved cache, held against
+           4 serve_steps from the same cache. Launch counts are checked
+           exactly (WKV 32 per rwkv6 prefill/extend; SSD 54 per zamba2
+           prefill/extend, flash 9 per zamba2 prefill, decode 9 per zamba2
+           step). First-token logits of the kernel path are held against
+           the plain path (impl="torch") on the card.
+After all path phases every kernel must have launched on a path.
 
 The engine's modelled clock, energy and carbon are the cost model's figures
 for the chips it names (a100 new, t4 old), not measurements of this card.
 The last lines of standard output are: the nvidia-smi line, one JSON object
-{"kernels": [...]}, and {"ok": true, "device": {...}}.
+{"kernels": [...]}, and {"ok": true, "device": {...}}. The launches there
+are the sums over the path phases (engine and recurrent).
 """
 from __future__ import annotations
 
@@ -61,22 +76,54 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 #   bf16: the plain version rounds its scores and probabilities to bf16
 #         before the value product; the kernel keeps them in fp32 (largest
 #         readings: flash and paged prefill 6.3e-2, the decodes 2.7e-2)
-TOL_PLAIN = {"float32": 2e-5,
+#   the recurrences (WKV, SSD) compute in fp32 from the same inputs in
+#   kernel (per token) and plain version (chunked): y and the final state
+#   differ by summation order over the T steps in either input type
+#   (largest readings: WKV 3.1e-5 fp32 and 4.7e-5 bf16 inputs, SSD 3.7e-5
+#   and 4.7e-5)
+TOL_PLAIN = {"float32": {"flash_attention": 2e-5, "decode_attention": 2e-5,
+                         "paged_decode_attention": 2e-5,
+                         "paged_prefill_attention": 2e-5,
+                         "rwkv6_wkv": 1e-4, "mamba2_ssd": 1.2e-4},
              "bfloat16": {"flash_attention": 2e-1, "decode_attention": 8e-2,
                           "paged_decode_attention": 8e-2,
-                          "paged_prefill_attention": 2e-1}}
+                          "paged_prefill_attention": 2e-1,
+                          "rwkv6_wkv": 1.5e-4, "mamba2_ssd": 1.5e-4}}
 #   against the fp32 oracle a bf16 kernel differs by its output rounding only
 #   (largest readings: flash 1.3e-2, paged prefill 2.2e-2, the decodes
-#   1.3e-3; half an ulp of an element ~3x its row's RMS is 5.9e-3)
+#   1.3e-3; half an ulp of an element ~3x its row's RMS is 5.9e-3); the
+#   recurrences write fp32, so only the order of their sums differs (largest
+#   readings from bf16 inputs: WKV 1.9e-5, SSD 3.2e-5)
 TOL_ORACLE_BF16 = {"flash_attention": 4e-2, "decode_attention": 1e-2,
-                   "paged_decode_attention": 1e-2, "paged_prefill_attention": 6e-2}
+                   "paged_decode_attention": 1e-2, "paged_prefill_attention": 6e-2,
+                   "rwkv6_wkv": 6e-5, "mamba2_ssd": 1e-4}
 #   first-token logits, kernel path vs plain path, both bf16: every layer
 #   adds one attention output's bf16 difference (largest reading 9.4e-2)
 TOL_LOGITS = 2.5e-1
+#   the recurrent models' first-token logits, kernel path vs plain path:
+#   the recurrences agree to ~1e-5 in fp32, but a bf16 rounding that flips
+#   in one layer grows through the data-dependent decays of the later ones.
+#   The phase also measures this noise floor: the plain path against itself
+#   with the recurrence's chunk halved (the same function in another fp32
+#   summation order). Largest readings 4.3e-1 on both models, the noise
+#   floor 4.2e-1 to 4.5e-1 (PERF.md, PR 12)
+TOL_LOGITS_REC = 1.3
+#   the recurrent models' logits, extend_step of 4 tokens vs 4 serve_steps
+#   from the same cache, both bf16: cuBLAS rounds a 4-token GEMM otherwise
+#   than a 1-token one, and the difference compounds through every layer and
+#   token (largest readings 2.5e-1 for rwkv6-7b and 3.4e-1 for zamba2-2.7b
+#   at the 4th token, the same on the plain path, impl="torch", as on the
+#   kernel path; PERF.md, PR 12)
+TOL_EXTEND = 1.0
 
 PROMPT_LENS = (287, 333, 402, 451)
 MAX_NEW = 16
 BLOCK = 16
+# the recurrent phase: 4 prompts of max(PROMPT_LENS) tokens, MAX_NEW greedy
+# serve_steps, then an extend_step of EXTEND tokens
+REC_ARCHS = ("rwkv6-7b", "zamba2-2.7b")
+REC_BATCH = 4
+EXTEND = 4
 
 
 def log(msg: str) -> None:
@@ -153,7 +200,8 @@ class KernelCheck:
         self.worst = {}          # dtype -> (largest error vs plain, vs oracle)
         self.cases = 0
         self.timing = {}
-        self.engine_launches = 0
+        self.timing_d80 = None       # flash/decode at zamba2's head_dim 80 shape
+        self.path_launches = 0
 
     def hold(self, got, plain, oracle, dtype, what: str) -> None:
         import torch
@@ -162,8 +210,7 @@ class KernelCheck:
         if not torch.isfinite(got.float()).all():
             raise RuntimeError(f"{self.name} {what}: non-finite output")
         key = str(dtype).split(".")[-1]
-        tol = TOL_PLAIN[key]
-        tol = tol[self.name] if isinstance(tol, dict) else tol
+        tol = TOL_PLAIN[key][self.name]
         abs_err, rel = _rel(got, plain)
         _, rel_o = _rel(got, oracle)
         tol_o = TOL_ORACLE_BF16[self.name] if key == "bfloat16" else tol
@@ -180,7 +227,7 @@ class KernelCheck:
     def record(self) -> dict:
         t = self.timing
         return {"name": self.name, "route": "cuda", "source": self.source,
-                "replaces": self.replaces, "launches": self.engine_launches,
+                "replaces": self.replaces, "launches": self.path_launches,
                 "max_abs_err": self.max_abs_err, "ms": t["ms"], "kernel_ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
@@ -199,8 +246,10 @@ def phase_kernels(gen):
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as pag
+    from repro_torch.kernels import rwkv6_wkv as wkv
     from repro_torch.models.config import AttentionConfig
     from repro_torch.serving.kv_cache import PagedKVPool
 
@@ -232,13 +281,28 @@ def phase_kernels(gen):
         "paged_prefill_attention": KernelCheck(
             "paged_prefill_attention", "src/repro_torch/csrc/paged_prefill_attention.cu",
             "src/repro/kernels/paged_attention.py:236", pag.PREFILL_KERNEL),
+        "rwkv6_wkv": KernelCheck(
+            "rwkv6_wkv", "src/repro_torch/csrc/rwkv6_wkv.cu",
+            "src/repro/kernels/rwkv6_wkv.py:79", wkv.KERNEL),
+        "mamba2_ssd": KernelCheck(
+            "mamba2_ssd", "src/repro_torch/csrc/mamba2_ssd.cu",
+            "src/repro/kernels/mamba2_ssd.py:80", ssd.KERNEL),
     }
+    # zamba2's shared attention block (head_dim 80) at the recurrent phase's
+    # prefill and decode shapes: those two kernels also get a timing there
+    zam = get_config("zamba2-2.7b")
+    hz, dz = zam.attn.num_heads, zam.attn.head_dim
+    s_rec = max(PROMPT_LENS)
+    rec_pos = [s_rec + x for x in (0, 5, 9, MAX_NEW - 1)]      # ragged steps
+    rec_slots = s_rec + MAX_NEW + EXTEND                         # the grown cache
     es = 2  # bytes per bf16 element at the timed (main-path) shapes
 
     # ---- flash: (B, S, H, KV, D, dtype); odd S, G in {1, 4, 8}
     c = checks["flash_attention"]
     for b, s, h, kv, d, dt in [(1, max(PROMPT_LENS), kvh7 * g7, kvh7, d7, bf16),
                                (1, max(PROMPT_LENS), kvh1 * g1, kvh1, d1, bf16),
+                               (REC_BATCH, s_rec, hz, zam.attn.num_kv_heads, dz, bf16),
+                               (2, 77, 8, 2, 80, f32),
                                (2, 77, 8, 8, 128, f32), (2, 129, 16, 4, 64, bf16),
                                (1, 200, 32, 4, 128, f32), (3, 33, 8, 1, 32, f32)]:
         q, k, v = rand(b, s, h, d, dtype=dt), rand(b, s, kv, d, dtype=dt), rand(b, s, kv, d, dtype=dt)
@@ -259,6 +323,18 @@ def phase_kernels(gen):
     pairs = b * h * s * (s + 1) / 2
     c.timing["bound_ms"], c.timing["bound_by"] = _bound(
         (2 * b * s * h * d + 2 * b * s * kv * d) * es, 4 * d * pairs)
+    b, s, h, kv, d = REC_BATCH, s_rec, hz, zam.attn.num_kv_heads, dz
+    q, k, v = rand(b, s, h, d, dtype=bf16), rand(b, s, kv, d, dtype=bf16), rand(b, s, kv, d, dtype=bf16)
+    qh, kh, vh = q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    c.timing_d80 = {
+        "ms": _time_ms(lambda: ops.flash_attention(q, k, v)),
+        "plain_ms": _time_ms(lambda: ops.flash_attention(q, k, v, impl="torch")),
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True)),
+    }
+    pairs = b * h * s * (s + 1) / 2
+    c.timing_d80["bound_ms"], c.timing_d80["bound_by"] = _bound(
+        (2 * b * s * h * d + 2 * b * s * kv * d) * es, 4 * d * pairs)
 
     # ---- dense decode: (B, KV, G, S, D, dtype, pos); inclusive kpos <= pos
     c = checks["decode_attention"]
@@ -268,6 +344,9 @@ def phase_kernels(gen):
             # a spec round's draft steps: the gathered cache is k + 1 wider
             (4, kvh1, g1, max(main_pos) + spec_k + 1, d1, bf16,
              [x + spec_k for x in main_pos]),
+            (REC_BATCH, zam.attn.num_kv_heads, hz // zam.attn.num_kv_heads, rec_slots, dz,
+             bf16, rec_pos),
+            (2, 4, 2, 100, 80, f32, [0, 99]),
             (3, 2, 4, 100, 64, f32, [0, 50, 99]),
             (2, 4, 8, 333, 128, f32, [1, 332]),
             (2, 8, 1, 65, 32, bf16, [64, 31])]:
@@ -298,6 +377,21 @@ def phase_kernels(gen):
     }
     keys = sum(x + 1 for x in main_pos)
     c.timing["bound_ms"], c.timing["bound_by"] = _bound(
+        2 * keys * kv * d * es + 2 * b * kv * g * d * es + 4 * b, 4 * d * kv * g * keys)
+    b, kv, d, s = REC_BATCH, zam.attn.num_kv_heads, dz, rec_slots
+    g = hz // kv
+    q = rand(b, 1, kv * g, d, dtype=bf16)
+    kc, vc = rand(b, kv, s, d, dtype=bf16), rand(b, kv, s, d, dtype=bf16)
+    p = ints(rec_pos)
+    mask = torch.arange(s, device=cuda)[None, None, None, :] <= p[:, None, None, None]
+    c.timing_d80 = {
+        "ms": _time_ms(lambda: ops.decode_attention(q, kc, vc, p)),
+        "plain_ms": _time_ms(lambda: ops.decode_attention(q, kc, vc, p, impl="torch")),
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kc, vc, attn_mask=mask, enable_gqa=True)),
+    }
+    keys = sum(x + 1 for x in rec_pos)
+    c.timing_d80["bound_ms"], c.timing_d80["bound_by"] = _bound(
         2 * keys * kv * d * es + 2 * b * kv * g * d * es + 4 * b, 4 * d * kv * g * keys)
 
     # ---- paged decode, through a real PagedKVPool: shared (adopted) pages
@@ -413,6 +507,76 @@ def phase_kernels(gen):
     c.timing["bound_ms"], c.timing["bound_by"] = _bound(
         (2 * cc * h * d + 2 * (ctx + cc) * kv * d) * es + 4 * table.shape[0],
         4 * d * h * (cc * ctx + cc * (cc + 1) / 2))
+    # ---- the recurrences: (B, T, H, N) / (B, T, H, P, N), dtype, state0;
+    # the recurrent phase's prefill and extend shapes, then small ones
+    # (T = 1, odd T, one and three heads, state0 zero)
+    def wkv_inputs(b, t, h, n, dt, state):
+        r, k, v = ((rand(b, t, h, n) * 0.5).to(dt) for _ in range(3))
+        logw = (-torch.exp(rand(b, t, h, n) * 0.5)).clamp(-8.0, -1e-4)
+        s0 = rand(b, h, n, n) * 0.1 if state else None
+        return r, k, v, logw, rand(h, n) * 0.1, s0
+
+    def ssd_inputs(b, t, h, p, n, dt, state):
+        x = (rand(b, t, h, p) * 0.5).to(dt)
+        bm, cm = ((rand(b, t, n) * 0.5).to(dt) for _ in range(2))
+        dtv = F.softplus(rand(b, t, h))
+        a_log = torch.log(torch.linspace(1.0, 8.0, h, device=cuda))
+        s0 = rand(b, h, n, p) * 0.1 if state else None
+        return x, bm, cm, dtv, a_log, s0
+
+    rwkv, zssm = get_config("rwkv6-7b"), zam.ssm
+    hw, nw = rwkv.d_model // rwkv.rwkv.head_dim, rwkv.rwkv.head_dim
+    hs = zssm.expand * zam.d_model // zssm.head_dim
+    ps, ns = zssm.head_dim, zssm.state_dim
+    c = checks["rwkv6_wkv"]
+    for b, t, h, n, dt, state in [
+            (REC_BATCH, s_rec, hw, nw, bf16, True), (REC_BATCH, s_rec, hw, nw, f32, True),
+            (REC_BATCH, EXTEND, hw, nw, bf16, True), (REC_BATCH, EXTEND, hw, nw, f32, True),
+            (1, 1, 1, 64, bf16, True), (2, 16, 3, 64, f32, True), (1, 17, 3, 32, bf16, False),
+            (2, 40, 1, 64, f32, True), (3, 17, 1, 16, f32, True)]:
+        r, k, v, logw, u, s0 = args = wkv_inputs(b, t, h, n, dt, state)
+        got = ops.rwkv6_wkv(*args)
+        plain = ops.rwkv6_wkv(*args, impl="torch")
+        zero = torch.zeros(b, h, n, n, device=cuda)
+        oy, os_ = ref.rwkv6_wkv_ref(*(a.transpose(1, 2) for a in (r, k, v, logw)), u,
+                                    zero if s0 is None else s0)
+        what = f"B={b} T={t} H={h} N={n} state0={state} {dt}"
+        c.hold(got[0], plain[0], oy.transpose(1, 2), dt, what + " y")
+        c.hold(got[1], plain[1], os_, dt, what + " state")
+    args = wkv_inputs(REC_BATCH, s_rec, hw, nw, bf16, True)
+    c.timing = {"ms": _time_ms(lambda: ops.rwkv6_wkv(*args)),
+                "plain_ms": _time_ms(lambda: ops.rwkv6_wkv(*args, impl="torch")),
+                "library_ms": None}
+    elems = REC_BATCH * s_rec * hw * nw
+    c.timing["bound_ms"], c.timing["bound_by"] = _bound(
+        3 * elems * es + elems * 4 + hw * nw * 4 + elems * 4 + 2 * REC_BATCH * hw * nw * nw * 4,
+        4 * elems * nw)
+    c = checks["mamba2_ssd"]
+    for b, t, h, p, n, dt, state in [
+            (REC_BATCH, s_rec, hs, ps, ns, bf16, True), (REC_BATCH, s_rec, hs, ps, ns, f32, True),
+            (REC_BATCH, EXTEND, hs, ps, ns, bf16, True), (REC_BATCH, EXTEND, hs, ps, ns, f32, True),
+            (1, 1, 1, 64, 64, bf16, True), (2, 16, 3, 64, 16, f32, True),
+            (1, 17, 3, 32, 64, bf16, False), (2, 40, 1, 64, 64, f32, True),
+            (3, 17, 1, 16, 128, f32, True)]:
+        x, bm, cm, dtv, a_log, s0 = args = ssd_inputs(b, t, h, p, n, dt, state)
+        got = ops.mamba2_ssd(*args)
+        plain = ops.mamba2_ssd(*args, impl="torch")
+        zero = torch.zeros(b, h, n, p, device=cuda)
+        oy, os_ = ref.mamba2_ssd_ref(x.transpose(1, 2), bm, cm, dtv.transpose(1, 2), a_log,
+                                     zero if s0 is None else s0)
+        what = f"B={b} T={t} H={h} P={p} N={n} state0={state} {dt}"
+        c.hold(got[0], plain[0], oy.transpose(1, 2), dt, what + " y")
+        c.hold(got[1], plain[1], os_, dt, what + " state")
+    args = ssd_inputs(REC_BATCH, s_rec, hs, ps, ns, bf16, True)
+    c.timing = {"ms": _time_ms(lambda: ops.mamba2_ssd(*args)),
+                "plain_ms": _time_ms(lambda: ops.mamba2_ssd(*args, impl="torch")),
+                "library_ms": None}
+    elems, toks = REC_BATCH * s_rec * hs * ps, REC_BATCH * s_rec
+    c.timing["bound_ms"], c.timing["bound_by"] = _bound(
+        elems * es + 2 * toks * ns * es + toks * hs * 4 + hs * 4 + elems * 4
+        + 2 * REC_BATCH * hs * ns * ps * 4,
+        4 * elems * ns)
+
     for ck in checks.values():
         log(f"{ck.name}: {ck.cases} cases held; kernel {ck.timing['ms']:.4f} ms, "
             f"plain {ck.timing['plain_ms']:.4f} ms, library {ck.timing['library_ms']}, "
@@ -420,6 +584,14 @@ def phase_kernels(gen):
         print(f"{ck.name}: largest row-normalised error (vs plain, vs fp32 oracle): "
               + ", ".join(f"{k} {p:.3e}, {o:.3e}" for k, (p, o) in sorted(ck.worst.items())),
               flush=True)
+        print(f"{ck.name}: timed (ms) kernel {ck.timing['ms']:.4f}, plain "
+              f"{ck.timing['plain_ms']:.4f}, library {ck.timing['library_ms']}, bound "
+              f"{ck.timing['bound_ms']:.4f} ({ck.timing['bound_by']})", flush=True)
+        t80 = ck.timing_d80
+        if t80:
+            print(f"{ck.name}: timed at zamba2's head_dim 80 shape (ms) kernel {t80['ms']:.4f}, "
+                  f"plain {t80['plain_ms']:.4f}, library {t80['library_ms']:.4f}, bound "
+                  f"{t80['bound_ms']:.4f} ({t80['bound_by']})", flush=True)
     return checks
 
 
@@ -500,10 +672,7 @@ def phase_engine(checks):
         del eng
         torch.cuda.empty_cache()
     for ck in checks.values():
-        ck.engine_launches = ck.kernel.launches
-    idle = [n for n, ck in checks.items() if ck.engine_launches == 0]
-    if idle:
-        raise RuntimeError(f"kernels never launched on the engine path: {idle}")
+        ck.path_launches += ck.kernel.launches
 
     # first-token logits, kernel path vs the plain path, on the card, for the
     # target and the draft: whole-prompt prefill (flash) and a two-chunk
@@ -554,6 +723,208 @@ def phase_engine(checks):
               flush=True)
 
 
+# -------------------------------------------------------------- recurrent
+def phase_recurrent(checks, card):
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import backbone
+    from repro_torch.models.layers import ExecConfig
+
+    cuda = torch.device("cuda")
+    plain = ExecConfig(impl="torch")
+    rng = np.random.default_rng(1)
+    b, s = REC_BATCH, max(PROMPT_LENS)
+    for arch in REC_ARCHS:
+        cfg = get_config(arch)
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(2)
+        t = time.perf_counter()
+        params = backbone.init_params(gen, cfg)
+        torch.cuda.synchronize()
+        n_params = sum(x.numel() for x in _leaves(params))
+        log(f"init: {time.perf_counter() - t:.1f} s for {arch} ({n_params / 1e9:.2f} B params, "
+            f"bf16, full width)")
+        L = cfg.num_layers
+        if cfg.family == "ssm":
+            per = {"prefill": {"rwkv6_wkv": L}, "step": {}, "extend": {"rwkv6_wkv": L}}
+        else:
+            taps = L // cfg.hybrid_attn_every
+            per = {"prefill": {"mamba2_ssd": L, "flash_attention": taps},
+                   "step": {"decode_attention": taps}, "extend": {"mamba2_ssd": L}}
+
+        def counted(what, want, fn):
+            """Run fn, synchronise, and hold the kernels it launched to
+            exactly `want`; returns (result, wall seconds)."""
+            before = {n: ck.kernel.launches for n, ck in checks.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            used = {n: ck.kernel.launches - before[n] for n, ck in checks.items()}
+            expected = {n: want.get(n, 0) for n in checks}
+            if used != expected:
+                raise RuntimeError(f"{arch} {what}: launches {used}, expected {expected}")
+            return out, secs
+
+        def finite(what, logits):
+            if not torch.isfinite(logits.float()).all():
+                raise RuntimeError(f"{arch} {what}: non-finite logits")
+
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s))).to(cuda)
+        for ck in checks.values():
+            ck.kernel.launches = 0
+        (first, cache), prefill_s = counted(
+            "prefill", per["prefill"], lambda: backbone.prefill(params, {"tokens": tokens}, cfg))
+        finite("prefill", first)
+        cache = backbone._grow_cache(cache, cfg, s + MAX_NEW + EXTEND)
+        tok, step_s = first.argmax(-1), []
+        for i in range(MAX_NEW):
+            (logits, cache), secs = counted(
+                f"serve_step {i}", per["step"],
+                lambda: backbone.serve_step(params, cache, tok, cfg))
+            finite(f"serve_step {i}", logits)
+            step_s.append(secs)
+            tok = logits.argmax(-1)
+        # extend_step of EXTEND greedy tokens from a saved cache, against
+        # EXTEND serve_steps from the same cache (both write K/V in place, so
+        # each starts from its own copy)
+        saved = _clone(cache)
+        ext_tok, step_logits = [], []
+        for i in range(EXTEND):
+            ext_tok.append(tok)
+            (logits, cache), _ = counted(
+                f"serve_step {MAX_NEW + i}", per["step"],
+                lambda: backbone.serve_step(params, cache, tok, cfg))
+            step_logits.append(logits)
+            tok = logits.argmax(-1)
+        ext_tok = torch.stack(ext_tok, 1)
+        (ext_logits, ext_cache), ext_s = counted(
+            "extend_step", per["extend"],
+            lambda: backbone.extend_step(params, _clone(saved), ext_tok, cfg))
+        finite("extend_step", ext_logits)
+        for ck in checks.values():
+            ck.path_launches += ck.kernel.launches
+        print(f"recurrent {arch}: prefill {b}x{s} tokens {prefill_s:.3f} s wall, decode "
+              f"{np.mean(step_s) * 1e3:.1f} ms per step (min {min(step_s) * 1e3:.1f}, max "
+              f"{max(step_s) * 1e3:.1f}) over {MAX_NEW} greedy serve_steps, extend_step of "
+              f"{EXTEND} tokens {ext_s * 1e3:.1f} ms; host clock on {card}", flush=True)
+        # the same check on the plain path (which launches no kernel): the
+        # bf16 divergence between a 4-token chunk and 4 single tokens is the
+        # model's, not the kernels'
+        state_key = "state" if cfg.family == "ssm" else "ssm_state"
+        pc, plain_logits = _clone(saved), []
+        for i in range(EXTEND):
+            (logits, pc), _ = counted(f"plain serve_step {i}", {}, lambda: backbone.serve_step(
+                params, pc, ext_tok[:, i], cfg, plain))
+            plain_logits.append(logits)
+        (pext_logits, pext_cache), _ = counted(
+            "plain extend_step", {},
+            lambda: backbone.extend_step(params, _clone(saved), ext_tok, cfg, plain))
+        errs = {}
+        for path, (el, ec, sl, sc) in {
+                "kernel": (ext_logits, ext_cache, step_logits, cache),
+                "plain": (pext_logits, pext_cache, plain_logits, pc)}.items():
+            # the final recurrent state as max|a - b| / max|b|: a state row
+            # can decay to ~0, so a row-normalised figure says nothing there
+            abs_err, _ = _rel(ec[state_key], sc[state_key])
+            errs[path] = (max(_rel(el[:, i], sl[i])[1] for i in range(EXTEND)),
+                          abs_err / sc[state_key].abs().max().item())
+        print(f"recurrent {arch}: extend_step vs {EXTEND} serve_steps from the same cache, "
+              f"logits (row-normalised) kernel path {errs['kernel'][0]:.3e} (tol "
+              f"{TOL_EXTEND:g}), plain path {errs['plain'][0]:.3e}; final {state_key} "
+              f"(max|d| / max|ref|) {errs['kernel'][1]:.3e}, {errs['plain'][1]:.3e}", flush=True)
+        if errs["kernel"][0] > TOL_EXTEND:
+            raise RuntimeError(f"{arch}: extend_step disagrees with serve_steps "
+                               f"({errs['kernel'][0]:.3e})")
+        # first-token logits, kernel path vs the plain path on the card
+        want, _ = backbone.prefill(params, {"tokens": tokens}, cfg, plain)
+        finite("plain prefill", want)
+        abs_err, rel = _rel(first, want)
+        cos = torch.nn.functional.cosine_similarity(first.float(), want.float(), dim=-1).min()
+        got_arg, want_arg = first.argmax(-1), want.argmax(-1)
+        # a differing argmax is a disagreement unless the plain path's two
+        # candidates lie within the observed error of each other (a tie)
+        rows = torch.arange(b, device=cuda)
+        gap = (want[rows, want_arg] - want[rows, got_arg]).float().abs().max().item()
+        tie = (f" (differing rows: the plain path's two candidates {gap:.4f} apart, within "
+               f"the largest error {abs_err:.4f}: a tie)" if gap else "")
+        print(f"first-token logits, {arch} prefill: kernel vs plain on the card {rel:.3e} "
+              f"(row-normalised, tol {TOL_LOGITS_REC:g}), cosine {float(cos):.6f}; argmax "
+              f"{got_arg.tolist()} vs {want_arg.tolist()}{tie}", flush=True)
+        if rel > TOL_LOGITS_REC or gap > abs_err:
+            raise RuntimeError(f"{arch}: kernel path logits disagree ({rel:.3e}, argmax "
+                               f"{got_arg.tolist()} vs {want_arg.tolist()})")
+        floor = _plain_half_chunk(lambda: backbone.prefill(params, {"tokens": tokens}, cfg,
+                                                            plain)[0])
+        _, rel_floor = _rel(floor, want)
+        cos_floor = torch.nn.functional.cosine_similarity(
+            floor.float(), want.float(), dim=-1).min()
+        print(f"first-token logits, {arch} prefill: noise floor (plain path with the "
+              f"recurrence's chunk halved vs plain path) {rel_floor:.3e}, cosine "
+              f"{float(cos_floor):.6f}; argmax {floor.argmax(-1).tolist()}", flush=True)
+        # where a prefill and the decode steps spend their time
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, pc = backbone.prefill(params, {"tokens": tokens}, cfg)
+            pc = backbone._grow_cache(pc, cfg, s + EXTEND)
+            for _ in range(EXTEND):
+                logits, pc = backbone.serve_step(params, pc, logits.argmax(-1), cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.device_time_total for e in on_card)
+        print(f"profile {arch} prefill + {EXTEND} serve_steps: wall {wall:.3f} s with the "
+              f"profiler on, device busy {busy_us / 1e6:.3f} s = {busy_us / 1e6 / wall:.1%} of "
+              f"wall", flush=True)
+        for e in sorted(on_card, key=lambda e: -e.device_time_total)[:8]:
+            print(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}",
+                  flush=True)
+        del params, cache, saved, ext_cache, pc
+        torch.cuda.empty_cache()
+
+
+def _plain_half_chunk(fn):
+    """Run fn with the plain WKV and SSD versions at half their chunk: the
+    same functions in another fp32 summation order."""
+    from unittest import mock
+
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import rwkv6_wkv as wkv
+
+    wkv_plain, ssd_math = wkv.wkv_chunked_plain, ssd.ssd_chunked_math
+
+    # the chunked forms pad T by calling themselves by module name with the
+    # chunk as the last positional argument: that call lands here too
+    def wkv_half(r, k, v, logw, u, state0=None, chunk=None):
+        return wkv_plain(r, k, v, logw, u, state0, wkv.CHUNK // 2)
+
+    def ssd_half(xh, b_in, c_in, dt, a_log, state0=None, chunk=None):
+        return ssd_math(xh, b_in, c_in, dt, a_log, state0, ssd.CHUNK // 2)
+
+    with mock.patch.object(wkv, "wkv_chunked_plain", wkv_half), \
+            mock.patch.object(ssd, "ssd_chunked_math", ssd_half):
+        return fn()
+
+
+def _clone(cache: dict) -> dict:
+    return {k: v.clone() for k, v in cache.items()}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 def main() -> int:
     import torch
 
@@ -567,6 +938,11 @@ def main() -> int:
     gen.manual_seed(0)
     checks = phase_kernels(gen)
     phase_engine(checks)
+    torch.cuda.empty_cache()
+    phase_recurrent(checks, card)
+    idle = [n for n, ck in checks.items() if ck.path_launches == 0]
+    if idle:
+        raise RuntimeError(f"kernels never launched on a path: {idle}")
     log(f"total {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(card)

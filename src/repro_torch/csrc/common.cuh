@@ -1,15 +1,20 @@
-// Shared pieces of the attention kernels: type conversion, warp reductions,
-// the online-softmax fold of one key tile into a warp's query rows, and the
-// merge of per-warp partial softmax states.
+// Shared pieces of the kernels: type conversion, warp reductions, the
+// launch helper and the error string every library exports; and, for the
+// attention kernels, the online-softmax fold of one key tile into a warp's
+// query rows and the merge of per-warp partial softmax states.
 //
-// Every kernel computes in fp32 and casts the output to the input type,
-// with NEG_INF = -1e30 for masked scores and the softmax denominator
+// Every attention kernel computes in fp32 and casts the output to the input
+// type, with NEG_INF = -1e30 for masked scores and the softmax denominator
 // floored at 1e-30, as the TPU kernels in src/repro/kernels/ do.
 //
 // A warp owns RPW query rows; lane `l` owns the output columns
-// d = l + 32 * j (j < DC, D = 32 * DC). A key tile holds up to 32 keys in
-// shared memory as fp32: key t sits on lane t for the score and is then
-// broadcast (shuffle) to all lanes for the P.V product.
+// d = l + 32 * j (j < DC = ceil(D / 32)). Every head dim D is a template
+// argument: for D a multiple of 32 every column is real, otherwise (D = 80)
+// the columns d >= D of the last j are masked, reading 0 and writing
+// nothing, and shared-memory rows are D (or D + 1) floats long. A key tile
+// holds up to 32 keys in shared memory as fp32: key t sits on lane t for
+// the score and is then broadcast (shuffle) to all lanes for the P.V
+// product.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,6 +37,17 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// Columns per lane for a head of D columns.
+__host__ __device__ constexpr int cols(int D) { return (D + 31) / 32; }
+
+// Whether lane's column j lies inside a head of D columns: always when D is
+// a multiple of 32 (the test folds away), the first D % 32 lanes of the
+// last j otherwise.
+template <int D>
+__device__ __forceinline__ bool in_head(int lane, int j) {
+  return D % 32 == 0 || lane + 32 * j < D;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -67,9 +83,10 @@ struct RowState {
 // src + off(t); rows past nk are zero so the score loop reads finite values.
 // A lane issues the loads of IN_FLIGHT rows before it stores any, so their
 // device-memory latencies overlap instead of adding up row after row.
-template <int DC, typename T, typename Off>
+template <int D, typename T, typename Off>
 __device__ __forceinline__ void load_rows(float* dst, int dst_stride, const T* __restrict__ src,
                                           Off off, int nk, int t_first, int t_step, int lane) {
+  constexpr int DC = cols(D);
   for (int t0 = t_first; t0 < TILE; t0 += IN_FLIGHT * t_step) {
     float v[IN_FLIGHT][DC];
 #pragma unroll
@@ -77,14 +94,16 @@ __device__ __forceinline__ void load_rows(float* dst, int dst_stride, const T* _
       const int t = t0 + u * t_step;
       const T* sr = src + (t < nk ? off(t) : 0);
 #pragma unroll
-      for (int j = 0; j < DC; ++j) v[u][j] = t < nk ? to_f(sr[lane + 32 * j]) : 0.f;
+      for (int j = 0; j < DC; ++j)
+        v[u][j] = t < nk && in_head<D>(lane, j) ? to_f(sr[lane + 32 * j]) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < IN_FLIGHT; ++u) {
       const int t = t0 + u * t_step;
       if (t < TILE) {
 #pragma unroll
-        for (int j = 0; j < DC; ++j) dst[t * dst_stride + lane + 32 * j] = v[u][j];
+        for (int j = 0; j < DC; ++j)
+          if (in_head<D>(lane, j)) dst[t * dst_stride + lane + 32 * j] = v[u][j];
       }
     }
   }
@@ -97,11 +116,11 @@ __device__ __forceinline__ void load_rows(float* dst, int dst_stride, const T* _
 //   v_row(t): pointer to value row t (shared fp32 or global), read by every
 //             lane at its own columns
 //   valid(i, t): whether row i sees key t of this tile (t < nk always holds)
-template <int DC, int RPW, typename VRow, typename Valid>
-__device__ __forceinline__ void fold_tile(RowState<DC, RPW>& st, const float* q,
+template <int D, int RPW, typename VRow, typename Valid>
+__device__ __forceinline__ void fold_tile(RowState<cols(D), RPW>& st, const float* q,
                                           const float* ks, int nk, VRow v_row,
                                           float scale, int lane, Valid valid) {
-  constexpr int D = DC * 32;
+  constexpr int DC = cols(D);
   float s[RPW];
 #pragma unroll
   for (int i = 0; i < RPW; ++i) s[i] = 0.f;
@@ -132,7 +151,8 @@ __device__ __forceinline__ void fold_tile(RowState<DC, RPW>& st, const float* q,
     for (int u = 0; u < IN_FLIGHT; ++u) {
       const auto* vr = v_row(t0 + u < nk ? t0 + u : t0);
 #pragma unroll
-      for (int j = 0; j < DC; ++j) v[u][j] = t0 + u < nk ? to_f(vr[lane + 32 * j]) : 0.f;
+      for (int j = 0; j < DC; ++j)
+        v[u][j] = t0 + u < nk && in_head<D>(lane, j) ? to_f(vr[lane + 32 * j]) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < IN_FLIGHT; ++u) {
@@ -150,15 +170,18 @@ __device__ __forceinline__ void fold_tile(RowState<DC, RPW>& st, const float* q,
 
 // Write a warp's finished rows: out_row(i) is the output row of row i, or
 // nullptr for a row the warp holds but does not own.
-template <int DC, int RPW, typename T, typename OutRow>
-__device__ __forceinline__ void store_rows(const RowState<DC, RPW>& st, OutRow out_row, int lane) {
+template <int D, int RPW, typename T, typename OutRow>
+__device__ __forceinline__ void store_rows(const RowState<cols(D), RPW>& st, OutRow out_row,
+                                           int lane) {
+  constexpr int DC = cols(D);
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     T* o = out_row(i);
     if (o == nullptr) continue;
     const float denom = fmaxf(st.l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < DC; ++j) o[lane + 32 * j] = from_f<T>(st.acc[i][j] / denom);
+    for (int j = 0; j < DC; ++j)
+      if (in_head<D>(lane, j)) o[lane + 32 * j] = from_f<T>(st.acc[i][j] / denom);
   }
 }
 
@@ -168,12 +191,12 @@ __device__ __forceinline__ void store_rows(const RowState<DC, RPW>& st, OutRow o
 // decode step's own token), and write row i to out + i * D. `scratch` holds
 // WARPS * RPW * (D + 2) floats and may alias the key tiles: the block
 // synchronises before writing it.
-template <int DC, int RPW, int WARPS, typename T>
-__device__ __forceinline__ void merge_and_store(const RowState<DC, RPW>& st, float* scratch,
+template <int D, int RPW, int WARPS, typename T>
+__device__ __forceinline__ void merge_and_store(const RowState<cols(D), RPW>& st, float* scratch,
                                                 int nrows, const float* self_s,
                                                 const T* __restrict__ self_v, T* __restrict__ out,
                                                 int warp, int lane) {
-  constexpr int D = DC * 32;
+  constexpr int DC = cols(D);
   float* m_s = scratch;                       // [WARPS][RPW]
   float* l_s = m_s + WARPS * RPW;             // [WARPS][RPW]
   float* a_s = l_s + WARPS * RPW;             // [WARPS][RPW][D]
@@ -185,7 +208,8 @@ __device__ __forceinline__ void merge_and_store(const RowState<DC, RPW>& st, flo
       l_s[warp * RPW + i] = st.l[i];
     }
 #pragma unroll
-    for (int j = 0; j < DC; ++j) a_s[(warp * RPW + i) * D + lane + 32 * j] = st.acc[i][j];
+    for (int j = 0; j < DC; ++j)
+      if (in_head<D>(lane, j)) a_s[(warp * RPW + i) * D + lane + 32 * j] = st.acc[i][j];
   }
   __syncthreads();
   for (int e = threadIdx.x; e < nrows * D; e += blockDim.x) {
@@ -211,12 +235,13 @@ __device__ __forceinline__ void merge_and_store(const RowState<DC, RPW>& st, flo
 
 }  // namespace rt
 
-// Dispatch a head_dim of 32, 64 or 128 to the compile-time DC = D / 32.
+// Dispatch a head_dim of 32, 64, 80 or 128 to the compile-time HD.
 #define RT_DISPATCH_D(D, ...)                                \
   switch (D) {                                               \
-    case 32: { constexpr int DC = 1; __VA_ARGS__; }          \
-    case 64: { constexpr int DC = 2; __VA_ARGS__; }          \
-    case 128: { constexpr int DC = 4; __VA_ARGS__; }         \
+    case 32: { constexpr int HD = 32; __VA_ARGS__; }         \
+    case 64: { constexpr int HD = 64; __VA_ARGS__; }         \
+    case 80: { constexpr int HD = 80; __VA_ARGS__; }         \
+    case 128: { constexpr int HD = 128; __VA_ARGS__; }       \
     default: return (int)cudaErrorInvalidValue;              \
   }
 

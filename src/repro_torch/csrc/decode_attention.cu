@@ -31,18 +31,16 @@ namespace {
 
 constexpr int WARPS = 8;
 
-template <int DC, int RPW>
+template <int D, int RPW>
 constexpr size_t smem_bytes() {
-  constexpr int D = DC * 32;
   return sizeof(float) * (RPW * D + WARPS * TILE * (D + 1));
 }
 
-template <typename T, int DC, int RPW>
+template <typename T, int D, int RPW>
 __global__ void __launch_bounds__(WARPS * 32)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
               const int* __restrict__ pos, T* __restrict__ o, int KV, int G, int S,
               float scale) {
-  constexpr int D = DC * 32;
   extern __shared__ float smem[];
   float* q_s = smem;                        // [RPW][D]
   float* k_all = q_s + RPW * D;             // [WARPS][TILE][D + 1], then merge scratch
@@ -57,29 +55,29 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
     q_s[e] = e / D < nrows ? to_f(q[q_row0 * D + e]) : 0.f;
   __syncthreads();
 
-  RowState<DC, RPW> st;
+  RowState<cols(D), RPW> st;
   st.init();
   const int kend = min(pos[b] + 1, S);      // inclusive: kpos <= pos
   float* k_s = k_all + warp * TILE * (D + 1);
   for (int t0 = warp * TILE; t0 < kend; t0 += WARPS * TILE) {
     const int nk = min(TILE, kend - t0);
     __syncwarp();
-    load_rows<DC>(k_s, D + 1, kc, [&](int t) { return (c_row0 + t0 + t) * D; }, nk, 0, 1, lane);
+    load_rows<D>(k_s, D + 1, kc, [&](int t) { return (c_row0 + t0 + t) * D; }, nk, 0, 1, lane);
     __syncwarp();
-    fold_tile<DC, RPW>(
+    fold_tile<D, RPW>(
         st, q_s, k_s, nk, [&](int t) { return vc + (c_row0 + t0 + t) * D; }, scale, lane,
         [&](int i, int) { return i < nrows; });
   }
-  merge_and_store<DC, RPW, WARPS, T>(st, k_all, nrows, nullptr, (const T*)nullptr,
+  merge_and_store<D, RPW, WARPS, T>(st, k_all, nrows, nullptr, (const T*)nullptr,
                                      o + q_row0 * D, warp, lane);
 }
 
-template <typename T, int DC, int RPW>
+template <typename T, int D, int RPW>
 int launch(const void* q, const void* kc, const void* vc, const int* pos, void* o, int B,
            int KV, int G, int S, float scale, cudaStream_t stream) {
   dim3 grid(KV, B, (G + RPW - 1) / RPW);
-  return rt_launch(decode_kernel<T, DC, RPW>, grid, dim3(WARPS * 32),
-                   smem_bytes<DC, RPW>(), stream, (const T*)q, (const T*)kc, (const T*)vc,
+  return rt_launch(decode_kernel<T, D, RPW>, grid, dim3(WARPS * 32),
+                   smem_bytes<D, RPW>(), stream, (const T*)q, (const T*)kc, (const T*)vc,
                    pos, (T*)o, KV, G, S, scale);
 }
 
@@ -95,6 +93,6 @@ extern "C" int decode_attention_launch(const void* q, const void* kc, const void
   cudaStream_t st = (cudaStream_t)stream;
   const int* p = (const int*)pos;
   RT_DISPATCH_D(D, RT_DISPATCH_RPW(rt_rows_per_warp(G), return is_bf16
-      ? launch<__nv_bfloat16, DC, RPW>(q, kc, vc, p, o, B, KV, G, S, scale, st)
-      : launch<float, DC, RPW>(q, kc, vc, p, o, B, KV, G, S, scale, st)));
+      ? launch<__nv_bfloat16, HD, RPW>(q, kc, vc, p, o, B, KV, G, S, scale, st)
+      : launch<float, HD, RPW>(q, kc, vc, p, o, B, KV, G, S, scale, st)));
 }

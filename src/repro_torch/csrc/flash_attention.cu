@@ -32,17 +32,15 @@ constexpr int WARPS = 8;
 constexpr int RPW = 8;
 constexpr int ROWS = WARPS * RPW;   // query rows per block
 
-template <int DC>
+template <int D>
 constexpr size_t smem_bytes() {
-  constexpr int D = DC * 32;
   return sizeof(float) * (ROWS * D + TILE * (D + 1) + TILE * D);
 }
 
-template <typename T, int DC>
+template <typename T, int D>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              T* __restrict__ o, int S, int H, int KV, int causal, float scale) {
-  constexpr int D = DC * 32;
   extern __shared__ float smem[];
   float* q_s = smem;                        // [ROWS][D]
   float* k_s = q_s + ROWS * D;              // [TILE][D + 1]
@@ -60,23 +58,24 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   for (int r = warp; r < ROWS; r += WARPS) {
     const int s = r0 + r;
 #pragma unroll
-    for (int j = 0; j < DC; ++j)
-      q_s[r * D + lane + 32 * j] = s < S ? to_f(q[q_off(s) + lane + 32 * j]) : 0.f;
+    for (int j = 0; j < cols(D); ++j)
+      if (in_head<D>(lane, j))
+        q_s[r * D + lane + 32 * j] = s < S ? to_f(q[q_off(s) + lane + 32 * j]) : 0.f;
   }
 
-  RowState<DC, RPW> st;
+  RowState<cols(D), RPW> st;
   st.init();
   const int kend = causal ? min(S, r0 + ROWS) : S;
   for (int t0 = 0; t0 < kend; t0 += TILE) {
     const int nk = min(TILE, kend - t0);
     __syncthreads();   // the previous tile is consumed (and q_s is written)
     auto off = [&](int t) { return kv_off(t0 + t); };
-    load_rows<DC>(k_s, D + 1, k, off, nk, warp, WARPS, lane);
-    load_rows<DC>(v_s, D, v, off, nk, warp, WARPS, lane);
+    load_rows<D>(k_s, D + 1, k, off, nk, warp, WARPS, lane);
+    load_rows<D>(v_s, D, v, off, nk, warp, WARPS, lane);
     __syncthreads();
     // a warp whose rows all precede the tile has nothing to fold
     if (my0 < S && (!causal || t0 <= my0 + RPW - 1)) {
-      fold_tile<DC, RPW>(
+      fold_tile<D, RPW>(
           st, q_s + warp * RPW * D, k_s, nk, [&](int t) { return v_s + t * D; }, scale, lane,
           [&](int i, int t) {
             const int row = my0 + i;
@@ -84,15 +83,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
           });
     }
   }
-  store_rows<DC, RPW, T>(
+  store_rows<D, RPW, T>(
       st, [&](int i) { return my0 + i < S ? o + q_off(my0 + i) : (T*)nullptr; }, lane);
 }
 
-template <typename T, int DC>
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
            int causal, float scale, cudaStream_t stream) {
   dim3 grid((S + ROWS - 1) / ROWS, H, B);
-  return rt_launch(flash_kernel<T, DC>, grid, dim3(WARPS * 32), smem_bytes<DC>(), stream,
+  return rt_launch(flash_kernel<T, D>, grid, dim3(WARPS * 32), smem_bytes<D>(), stream,
                    (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, KV, causal, scale);
 }
 
@@ -107,6 +106,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const float scale = (float)(1.0 / sqrt((double)D));
   cudaStream_t st = (cudaStream_t)stream;
   RT_DISPATCH_D(D, return is_bf16
-      ? launch<__nv_bfloat16, DC>(q, k, v, o, B, S, H, KV, causal, scale, st)
-      : launch<float, DC>(q, k, v, o, B, S, H, KV, causal, scale, st));
+      ? launch<__nv_bfloat16, HD>(q, k, v, o, B, S, H, KV, causal, scale, st)
+      : launch<float, HD>(q, k, v, o, B, S, H, KV, causal, scale, st));
 }

@@ -27,19 +27,17 @@ namespace {
 
 constexpr int WARPS = 8;
 
-template <int DC, int RPW>
+template <int D, int RPW>
 constexpr size_t dec_smem_bytes() {
-  constexpr int D = DC * 32;
   return sizeof(float) * (RPW * D + RPW + WARPS * TILE * (D + 1));
 }
 
-template <typename T, int DC, int RPW>
+template <typename T, int D, int RPW>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
                     const int* __restrict__ tables, const int* __restrict__ lengths,
                     const T* __restrict__ kn, const T* __restrict__ vn, T* __restrict__ o,
                     int KV, int G, int bs, int NB, float scale) {
-  constexpr int D = DC * 32;
   extern __shared__ float smem[];
   float* q_s = smem;                        // [RPW][D]
   float* self_s = q_s + RPW * D;            // [RPW] scores against the step's own key
@@ -60,35 +58,36 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* 
   for (int i = warp; i < nrows; i += WARPS) {
     float part = 0.f;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) part += q_s[i * D + lane + 32 * j] * to_f(kn[new_off + lane + 32 * j]);
+    for (int j = 0; j < cols(D); ++j)
+      if (in_head<D>(lane, j)) part += q_s[i * D + lane + 32 * j] * to_f(kn[new_off + lane + 32 * j]);
     part = warp_sum(part);
     if (lane == 0) self_s[i] = part * scale;
   }
 
-  RowState<DC, RPW> st;
+  RowState<cols(D), RPW> st;
   st.init();
   const int len = min(lengths[b], NB * bs);   // cached tokens: kpos < len
   float* k_s = k_all + warp * TILE * (D + 1);
   for (int t0 = warp * TILE; t0 < len; t0 += WARPS * TILE) {
     const int nk = min(TILE, len - t0);
     __syncwarp();
-    load_rows<DC>(k_s, D + 1, kp, [&](int t) { return page_off(t0 + t); }, nk, 0, 1, lane);
+    load_rows<D>(k_s, D + 1, kp, [&](int t) { return page_off(t0 + t); }, nk, 0, 1, lane);
     __syncwarp();
-    fold_tile<DC, RPW>(
+    fold_tile<D, RPW>(
         st, q_s, k_s, nk, [&](int t) { return vp + page_off(t0 + t); }, scale, lane,
         [&](int i, int) { return i < nrows; });
   }
-  merge_and_store<DC, RPW, WARPS, T>(st, k_all, nrows, self_s, vn + new_off, o + q_row0 * D,
+  merge_and_store<D, RPW, WARPS, T>(st, k_all, nrows, self_s, vn + new_off, o + q_row0 * D,
                                      warp, lane);
 }
 
-template <typename T, int DC, int RPW>
+template <typename T, int D, int RPW>
 int launch_decode(const void* q, const void* kp, const void* vp, const int* tables,
                   const int* lengths, const void* kn, const void* vn, void* o, int B, int KV,
                   int G, int bs, int NB, float scale, cudaStream_t stream) {
   dim3 grid(KV, B, (G + RPW - 1) / RPW);
-  return rt_launch(paged_decode_kernel<T, DC, RPW>, grid, dim3(WARPS * 32),
-                   dec_smem_bytes<DC, RPW>(), stream, (const T*)q, (const T*)kp,
+  return rt_launch(paged_decode_kernel<T, D, RPW>, grid, dim3(WARPS * 32),
+                   dec_smem_bytes<D, RPW>(), stream, (const T*)q, (const T*)kp,
                    (const T*)vp, tables, lengths, (const T*)kn, (const T*)vn, (T*)o, KV, G,
                    bs, NB, scale);
 }
@@ -108,8 +107,8 @@ extern "C" int paged_decode_launch(const void* q, const void* kp, const void* vp
   const int* tb = (const int*)tables;
   const int* ln = (const int*)lengths;
   RT_DISPATCH_D(D, RT_DISPATCH_RPW(rt_rows_per_warp(G), return is_bf16
-      ? launch_decode<__nv_bfloat16, DC, RPW>(q, kp, vp, tb, ln, kn, vn, o, B, KV, G, bs, NB,
+      ? launch_decode<__nv_bfloat16, HD, RPW>(q, kp, vp, tb, ln, kn, vn, o, B, KV, G, bs, NB,
                                               scale, st)
-      : launch_decode<float, DC, RPW>(q, kp, vp, tb, ln, kn, vn, o, B, KV, G, bs, NB, scale,
+      : launch_decode<float, HD, RPW>(q, kp, vp, tb, ln, kn, vn, o, B, KV, G, bs, NB, scale,
                                       st)));
 }

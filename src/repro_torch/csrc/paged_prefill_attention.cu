@@ -28,19 +28,17 @@ constexpr int PF_WARPS = 8;
 constexpr int PF_RPW = 8;
 constexpr int PF_ROWS = PF_WARPS * PF_RPW;   // query rows per block
 
-template <int DC>
+template <int D>
 constexpr size_t pf_smem_bytes() {
-  constexpr int D = DC * 32;
   return sizeof(float) * (PF_ROWS * D + TILE * (D + 1) + TILE * D);
 }
 
-template <typename T, int DC>
+template <typename T, int D>
 __global__ void __launch_bounds__(PF_WARPS * 32)
 paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
                      const int* __restrict__ table, int ctx, const T* __restrict__ ks,
                      const T* __restrict__ vs, T* __restrict__ o, int C, int KV, int G, int bs,
                      float scale) {
-  constexpr int D = DC * 32;
   extern __shared__ float smem[];
   float* q_s = smem;                        // [PF_ROWS][D]
   float* k_s = q_s + PF_ROWS * D;           // [TILE][D + 1]
@@ -57,11 +55,12 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T*
 
   for (int r = warp; r < PF_ROWS; r += PF_WARPS) {
 #pragma unroll
-    for (int j = 0; j < DC; ++j)
-      q_s[r * D + lane + 32 * j] = r0 + r < CG ? to_f(q[q_off(r0 + r) + lane + 32 * j]) : 0.f;
+    for (int j = 0; j < cols(D); ++j)
+      if (in_head<D>(lane, j))
+        q_s[r * D + lane + 32 * j] = r0 + r < CG ? to_f(q[q_off(r0 + r) + lane + 32 * j]) : 0.f;
   }
 
-  RowState<DC, PF_RPW> st;
+  RowState<cols(D), PF_RPW> st;
   st.init();
   const float* my_q = q_s + warp * PF_RPW * D;
   auto v_tile = [&](int t) { return v_s + t * D; };
@@ -70,11 +69,11 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T*
     const int nk = min(TILE, ctx - t0);
     __syncthreads();
     auto off = [&](int t) { return ctx_off(t0 + t); };
-    load_rows<DC>(k_s, D + 1, kp, off, nk, warp, PF_WARPS, lane);
-    load_rows<DC>(v_s, D, vp, off, nk, warp, PF_WARPS, lane);
+    load_rows<D>(k_s, D + 1, kp, off, nk, warp, PF_WARPS, lane);
+    load_rows<D>(v_s, D, vp, off, nk, warp, PF_WARPS, lane);
     __syncthreads();
     if (my0 < CG)
-      fold_tile<DC, PF_RPW>(st, my_q, k_s, nk, v_tile, scale, lane,
+      fold_tile<D, PF_RPW>(st, my_q, k_s, nk, v_tile, scale, lane,
                             [&](int i, int) { return my0 + i < CG; });
   }
   // the chunk itself, causal: row r sees chunk token c iff c <= r / G
@@ -83,25 +82,25 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T*
     const int nk = min(TILE, send - t0);
     __syncthreads();
     auto off = [&](int t) { return self_off(t0 + t); };
-    load_rows<DC>(k_s, D + 1, ks, off, nk, warp, PF_WARPS, lane);
-    load_rows<DC>(v_s, D, vs, off, nk, warp, PF_WARPS, lane);
+    load_rows<D>(k_s, D + 1, ks, off, nk, warp, PF_WARPS, lane);
+    load_rows<D>(v_s, D, vs, off, nk, warp, PF_WARPS, lane);
     __syncthreads();
     if (my0 < CG && t0 <= (my0 + PF_RPW - 1) / G)
-      fold_tile<DC, PF_RPW>(st, my_q, k_s, nk, v_tile, scale, lane, [&](int i, int t) {
+      fold_tile<D, PF_RPW>(st, my_q, k_s, nk, v_tile, scale, lane, [&](int i, int t) {
         const int r = my0 + i;
         return r < CG && t0 + t <= r / G;
       });
   }
-  store_rows<DC, PF_RPW, T>(
+  store_rows<D, PF_RPW, T>(
       st, [&](int i) { return my0 + i < CG ? o + q_off(my0 + i) : (T*)nullptr; }, lane);
 }
 
-template <typename T, int DC>
+template <typename T, int D>
 int launch_prefill(const void* q, const void* kp, const void* vp, const int* table, int ctx,
                    const void* ks, const void* vs, void* o, int C, int KV, int G, int bs,
                    float scale, cudaStream_t stream) {
   dim3 grid((C * G + PF_ROWS - 1) / PF_ROWS, KV);
-  return rt_launch(paged_prefill_kernel<T, DC>, grid, dim3(PF_WARPS * 32), pf_smem_bytes<DC>(),
+  return rt_launch(paged_prefill_kernel<T, D>, grid, dim3(PF_WARPS * 32), pf_smem_bytes<D>(),
                    stream, (const T*)q, (const T*)kp, (const T*)vp, table, ctx, (const T*)ks,
                    (const T*)vs, (T*)o, C, KV, G, bs, scale);
 }
@@ -120,6 +119,6 @@ extern "C" int paged_prefill_launch(const void* q, const void* kp, const void* v
   cudaStream_t st = (cudaStream_t)stream;
   const int* tb = (const int*)table;
   RT_DISPATCH_D(D, return is_bf16
-      ? launch_prefill<__nv_bfloat16, DC>(q, kp, vp, tb, ctx, ks, vs, o, C, KV, G, bs, scale, st)
-      : launch_prefill<float, DC>(q, kp, vp, tb, ctx, ks, vs, o, C, KV, G, bs, scale, st));
+      ? launch_prefill<__nv_bfloat16, HD>(q, kp, vp, tb, ctx, ks, vs, o, C, KV, G, bs, scale, st)
+      : launch_prefill<float, HD>(q, kp, vp, tb, ctx, ks, vs, o, C, KV, G, bs, scale, st));
 }

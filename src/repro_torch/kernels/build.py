@@ -29,8 +29,9 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v"]
 SOURCES = ("flash_attention", "decode_attention", "paged_decode_attention",
-           "paged_prefill_attention")
-HEAD_DIMS = (32, 64, 128)
+           "paged_prefill_attention", "rwkv6_wkv", "mamba2_ssd")
+HEAD_DIMS = (32, 64, 80, 128)
+STATE_DIMS = (16, 32, 64, 128)     # N (and P) the recurrence kernels take
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
 
@@ -154,3 +155,9 @@ def check_head_dim(d: int) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported by the CUDA kernels "
                          f"(one of {HEAD_DIMS})")
+
+
+def check_state_dim(name: str, n: int) -> None:
+    if n not in STATE_DIMS:
+        raise ValueError(f"{name} = {n} not supported by the recurrence kernels "
+                         f"(one of {STATE_DIMS})")

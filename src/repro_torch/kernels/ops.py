@@ -1,7 +1,9 @@
-"""Front door of the attention kernels, in the model's layouts.
+"""Front door of the kernels, in the model's layouts.
 
 The signatures are the reference's (src/repro/kernels/ops.py): activations
-(B, S, H, D), caches (B, KV, S, D), one pool layer (NB + 1, KV, bs, D).
+(B, S, H, D), caches (B, KV, S, D), one pool layer (NB + 1, KV, bs, D); the
+recurrences take (B, T, H, N) / (B, T, H, P) and return fp32 outputs and
+states.
 
 Dispatch, by `impl`:
   "auto"  (the default) a CUDA tensor launches the hand-written kernel, or
@@ -17,7 +19,9 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mamba2_ssd as _ssd
 from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import rwkv6_wkv as _wkv
 
 IMPLS = ("auto", "torch")
 
@@ -77,3 +81,24 @@ def paged_prefill_attention(q, k_pages, v_pages, table, ctx: int,
             q, k_pages, v_pages, table, ctx, k_self, v_self)
     return _paged.paged_prefill_attention(
         q, k_pages, v_pages, table, ctx, k_self, v_self)
+
+
+def rwkv6_wkv(r, k, v, logw, u, state0=None, impl: str = "auto"):
+    """RWKV6 WKV over T tokens. r/k/v: (B, T, H, N); logw: (B, T, H, N) <= 0;
+    u: (H, N); state0: (B, H, N, N) fp32 or None (zeros)
+    -> (y (B, T, H, N) fp32, final state (B, H, N, N) fp32)."""
+    logw, u = logw.float(), u.float()
+    if _plain(impl):
+        return _wkv.wkv_chunked_plain(r, k, v, logw, u, state0)
+    return _wkv.rwkv6_wkv(r, k, v, logw, u, state0)
+
+
+def mamba2_ssd(xh, b_in, c_in, dt, a_log, state0=None, impl: str = "auto"):
+    """Mamba2 SSD over T tokens. xh: (B, T, H, P); b_in/c_in: (B, T, N)
+    shared across heads; dt: (B, T, H) post-softplus; a_log: (H,); state0:
+    (B, H, N, P) fp32 or None (zeros)
+    -> (y (B, T, H, P) fp32, final state (B, H, N, P) fp32)."""
+    dt, a_log = dt.float(), a_log.float()
+    if _plain(impl):
+        return _ssd.ssd_plain(xh, b_in, c_in, dt, a_log, state0)
+    return _ssd.mamba2_ssd(xh, b_in, c_in, dt, a_log, state0)

@@ -1,10 +1,11 @@
-"""Plain torch oracles for the attention kernels.
+"""Plain torch fp32 oracles for the kernels.
 
-Deliberately different algorithms from the kernels: every oracle casts to
-fp32 first and materialises the full score matrix, in the heads-major
-layouts of the TPU kernels (src/repro/kernels/ref.py), so the tests can hold
-the port's kernels and plain versions against them and against the
-reference's jnp oracles on the same inputs.
+Deliberately different algorithms from the kernels: every attention oracle
+casts to fp32 first and materialises the full score matrix, and the two
+recurrence oracles step one token at a time, in the heads-major layouts of
+the TPU kernels (src/repro/kernels/ref.py), so the tests can hold the port's
+kernels and plain versions against them and against the reference's jnp
+oracles on the same inputs.
 """
 from __future__ import annotations
 
@@ -85,3 +86,33 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, table, ctx: int,
     visible = torch.where(col < nb * bs, col < ctx, col - nb * bs <= row_tok)
     scores = torch.where(visible[None], scores, NEG_INF)
     return _softmax_out(scores, vc[:, None], q.dtype)
+
+
+def rwkv6_wkv_ref(r, k, v, logw, u, state0):
+    """Per-token WKV6 recurrence. r/k/v/logw (B, H, T, N), u (H, N), state0
+    (B, H, N, N) -> (y (B, H, T, N) fp32, final state)."""
+    rf, kf, vf, lw = (a.float() for a in (r, k, v, logw))
+    s = state0.float()
+    uf = u.float()[None, :, :, None]
+    ys = []
+    for t in range(r.shape[2]):
+        kv = torch.einsum("bhn,bhm->bhnm", kf[:, :, t], vf[:, :, t])
+        ys.append(torch.einsum("bhn,bhnm->bhm", rf[:, :, t], s + uf * kv))
+        s = s * torch.exp(lw[:, :, t])[..., None] + kv
+    return torch.stack(ys, dim=2), s
+
+
+def mamba2_ssd_ref(x, b_in, c_in, dt, a_log, state0, clamp: float = 1.0):
+    """Per-token SSD recurrence. x (B, H, T, P), b_in/c_in (B, T, N), dt
+    (B, H, T), a_log (H,), state0 (B, H, N, P) -> (y (B, H, T, P) fp32,
+    final state)."""
+    xf, bf, cf, dtf = x.float(), b_in.float(), c_in.float(), dt.float()
+    a = -torch.exp(a_log.float())                       # (H,)
+    s = state0.float()
+    ys = []
+    for t in range(x.shape[2]):
+        la = torch.clamp(a * dtf[:, :, t], -clamp, 0.0)   # (B, H)
+        upd = torch.einsum("bn,bhp->bhnp", bf[:, t], xf[:, :, t] * dtf[:, :, t, None])
+        s = s * torch.exp(la)[..., None, None] + upd
+        ys.append(torch.einsum("bn,bhnp->bhp", cf[:, t], s))
+    return torch.stack(ys, dim=2), s

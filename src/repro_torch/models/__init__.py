@@ -9,6 +9,7 @@ from repro_torch.models.config import (
 from repro_torch.models.layers import DEFAULT_EXEC, ExecConfig
 from repro_torch.models.backbone import (
     extend_step,
+    init_cache,
     init_params,
     prefill,
     serve_step,
@@ -16,6 +17,6 @@ from repro_torch.models.backbone import (
 
 __all__ = [
     "AttentionConfig", "ModelConfig", "MoEConfig", "RWKVConfig", "SSMConfig",
-    "reduced", "ExecConfig", "DEFAULT_EXEC", "extend_step", "init_params",
+    "reduced", "ExecConfig", "DEFAULT_EXEC", "extend_step", "init_cache", "init_params",
     "prefill", "serve_step",
 ]

@@ -21,6 +21,7 @@ from repro_torch.models.layers import (
     ExecConfig,
     apply_rope,
     normal,
+    plain_only,
     rope_angles,
     torch_dtype,
 )
@@ -38,13 +39,6 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def _plain_only(x, what: str) -> None:
-    """The reference's non-kernel math is the port's CPU-only plain path."""
-    if x.is_cuda:
-        raise ValueError(f"{what} with use_kernels=False runs on the CPU only; "
-                         "on the card attention goes through the kernels")
-
-
 # the reference's `_attend_block` (q: (B, qb, H, D) at offset q_offset)
 _attend_block = attend_block
 
@@ -56,7 +50,7 @@ def multihead_attention(q, k, v, cfg_attn: AttentionConfig,
     if exec_cfg.use_kernels:
         return kops.flash_attention(q, k, v, causal=cfg_attn.causal,
                                     impl=exec_cfg.impl)
-    _plain_only(q, "multihead_attention")
+    plain_only(q, "multihead_attention")
     return flash_attention_plain(q, k, v, cfg_attn.causal, exec_cfg.q_block)
 
 
@@ -66,7 +60,7 @@ def decode_attention(q, k_cache, v_cache, pos,
     caches (B, KV, S_max, D), pos: (B,) current lengths (q is at pos)."""
     if exec_cfg.use_kernels:
         return kops.decode_attention(q, k_cache, v_cache, pos, impl=exec_cfg.impl)
-    _plain_only(q, "decode_attention")
+    plain_only(q, "decode_attention")
     return decode_attention_plain(q, k_cache, v_cache, pos)
 
 

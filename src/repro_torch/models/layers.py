@@ -43,6 +43,14 @@ class ExecConfig:
 DEFAULT_EXEC = ExecConfig()
 
 
+def plain_only(x, what: str) -> None:
+    """The reference's non-kernel math (use_kernels=False) is the port's
+    CPU-only plain path: on a CUDA tensor it raises."""
+    if x.is_cuda:
+        raise ValueError(f"{what} with use_kernels=False runs on the CPU only; "
+                         "on the card it goes through the kernels")
+
+
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 

@@ -4,7 +4,8 @@ The reference draws its weights from `jax.random` (src/repro/models/
 backbone.py `init_params`), which torch cannot replay, so a parity test
 converts the reference's param pytree to numpy arrays and hands it here.
 The stacked `layers` pytree (every leaf with a leading L axis, for
-`lax.scan`) becomes the port's list of per-layer dicts.
+`lax.scan`) becomes the port's list of per-layer dicts; the hybrid's
+`shared_attn` block is carried across as it is.
 """
 from __future__ import annotations
 
@@ -34,6 +35,9 @@ def from_reference(params_np: dict, cfg: ModelConfig, device=None) -> dict:
     dev = resolve_device(device)
     layers = [_map(params_np["layers"], lambda a, l=l: _tensor(a[l], dev))
               for l in range(cfg.num_layers)]
-    return {"tok": _map(params_np["tok"], lambda a: _tensor(a, dev)),
-            "layers": layers,
-            "final_norm": _tensor(params_np["final_norm"], dev)}
+    params = {"tok": _map(params_np["tok"], lambda a: _tensor(a, dev)),
+              "layers": layers,
+              "final_norm": _tensor(params_np["final_norm"], dev)}
+    if "shared_attn" in params_np:
+        params["shared_attn"] = _map(params_np["shared_attn"], lambda a: _tensor(a, dev))
+    return params

@@ -15,14 +15,20 @@ import torch
 
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fla
+from repro_torch.kernels import mamba2_ssd as ssd
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pag
+from repro_torch.kernels import rwkv6_wkv as wkv
 
 pytestmark = pytest.mark.cuda
 
 # max|kernel - plain| / max|plain|: fp32 differs in summation order only;
 # bf16 plain versions round scores and probabilities to bf16
 TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+# the recurrences: kernel (per token) and plain version (chunked) both work
+# in fp32 on the same inputs, so they differ in summation order only, over
+# T dependent steps
+TOL_REC = 1e-3
 
 
 @pytest.fixture
@@ -55,7 +61,16 @@ def test_flash_kernel_matches_plain(gen, s, h, kv, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kv,g,d", [(4, 1, 128), (2, 4, 64), (2, 8, 128), (1, 12, 32)])
+@pytest.mark.parametrize("s,h,kv,d", [(451, 32, 32, 80), (37, 8, 2, 80)])
+def test_flash_kernel_matches_plain_at_head_dim_80(gen, s, h, kv, d, dtype):
+    q, k, v = _rand(gen, 2, s, h, d, dtype=dtype), _rand(gen, 2, s, kv, d, dtype=dtype), \
+        _rand(gen, 2, s, kv, d, dtype=dtype)
+    _close(ops.flash_attention(q, k, v), ops.flash_attention(q, k, v, impl="torch"), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv,g,d", [(4, 1, 128), (2, 4, 64), (2, 8, 128), (1, 12, 32),
+                                    (32, 1, 80), (2, 4, 80)])
 def test_decode_kernels_match_plain(gen, kv, g, d, dtype):
     b, s, bs, nb = 3, 70, 16, 5
     pos = torch.tensor([0, 37, 69], dtype=torch.int32, device="cuda")
@@ -75,9 +90,10 @@ def test_decode_kernels_match_plain(gen, kv, g, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,ctx,g", [(37, 13, 4), (20, 0, 8), (150, 45, 1)])
-def test_paged_prefill_kernel_matches_plain(gen, c, ctx, g, dtype):
-    kv, d, bs = 2, 64, 8
+@pytest.mark.parametrize("c,ctx,g,d", [(37, 13, 4, 64), (20, 0, 8, 64), (150, 45, 1, 64),
+                                      (37, 13, 4, 80)])
+def test_paged_prefill_kernel_matches_plain(gen, c, ctx, g, d, dtype):
+    kv, bs = 2, 8
     nb = max(-(-ctx // bs), 1)
     kp, vp = _rand(gen, nb + 3, kv, bs, d, dtype=dtype), _rand(gen, nb + 3, kv, bs, d, dtype=dtype)
     table = torch.randperm(nb + 2, generator=gen, device="cuda")[:nb].int()
@@ -87,6 +103,87 @@ def test_paged_prefill_kernel_matches_plain(gen, c, ctx, g, dtype):
     args = (q, kp, vp, table, ctx, ks, vs)
     _close(ops.paged_prefill_attention(*args),
            ops.paged_prefill_attention(*args, impl="torch"), dtype)
+
+
+def _wkv_inputs(gen, b, t, h, n, dtype, state=True):
+    r, k, v = (_rand(gen, b, t, h, n, dtype=dtype) * 0.5 for _ in range(3))
+    logw = (-torch.exp(_rand(gen, b, t, h, n) * 0.5)).clamp(-8.0, -1e-4)
+    u = _rand(gen, h, n) * 0.1
+    s0 = _rand(gen, b, h, n, n) * 0.1 if state else None
+    return r, k, v, logw, u, s0
+
+
+def _ssd_inputs(gen, b, t, h, p, n, dtype, state=True):
+    x = _rand(gen, b, t, h, p, dtype=dtype) * 0.5
+    bm, cm = (_rand(gen, b, t, n, dtype=dtype) * 0.5 for _ in range(2))
+    dt = torch.nn.functional.softplus(_rand(gen, b, t, h))
+    a_log = torch.log(torch.linspace(1.0, 8.0, h, device="cuda"))
+    s0 = _rand(gen, b, h, n, p) * 0.1 if state else None
+    return x, bm, cm, dt, a_log, s0
+
+
+def _close_rec(got, want):
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        err = (a - b.float()).abs().max() / (b.float().abs().max() + 1e-6)
+        assert err < TOL_REC, float(err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,n,state", [(2, 1, 3, 64, True), (1, 17, 1, 64, True),
+                                           (2, 40, 3, 32, False), (4, 451, 4, 64, True),
+                                           (1, 16, 2, 16, True), (1, 33, 1, 128, True)])
+def test_wkv_kernel_matches_plain(gen, b, t, h, n, state, dtype):
+    args = _wkv_inputs(gen, b, t, h, n, dtype, state)
+    before = wkv.KERNEL.launches
+    _close_rec(ops.rwkv6_wkv(*args), ops.rwkv6_wkv(*args, impl="torch"))
+    assert wkv.KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,p,n,state", [(2, 1, 3, 64, 64, True), (1, 17, 1, 64, 64, True),
+                                             (2, 40, 3, 32, 16, False),
+                                             (4, 451, 4, 64, 64, True),
+                                             (1, 16, 2, 16, 128, True)])
+def test_ssd_kernel_matches_plain(gen, b, t, h, p, n, state, dtype):
+    args = _ssd_inputs(gen, b, t, h, p, n, dtype, state)
+    before = ssd.KERNEL.launches
+    _close_rec(ops.mamba2_ssd(*args), ops.mamba2_ssd(*args, impl="torch"))
+    assert ssd.KERNEL.launches == before + 1
+
+
+def test_recurrence_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    r, k, v, logw, u, s0 = _wkv_inputs(gen, 1, 8, 2, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv.rwkv6_wkv_cuda(*(a.cpu() for a in (r, k, v, logw, u, s0)))
+    with pytest.raises(ValueError, match="logw"):
+        wkv.rwkv6_wkv_cuda(r, k, v, logw.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="state0"):
+        wkv.rwkv6_wkv_cuda(r, k, v, logw, u, s0[:, :1].contiguous())
+    with pytest.raises(ValueError, match="head size"):
+        wkv.rwkv6_wkv_cuda(*(a[..., :48].contiguous() for a in (r, k, v, logw, u)))
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv.rwkv6_wkv_cuda(r, k.transpose(1, 2).contiguous().transpose(1, 2), v, logw, u)
+    x, bm, cm, dt, a_log, s0 = _ssd_inputs(gen, 1, 8, 2, 64, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.mamba2_ssd_cuda(*(a.cpu() for a in (x, bm, cm, dt, a_log, s0)))
+    with pytest.raises(ValueError, match="dtype"):
+        ssd.mamba2_ssd_cuda(x, bm.float(), cm, dt, a_log, s0)
+    with pytest.raises(ValueError, match="dt"):
+        ssd.mamba2_ssd_cuda(x, bm, cm, dt[:, :4].contiguous(), a_log, s0)
+    with pytest.raises(ValueError, match="head channels"):
+        ssd.mamba2_ssd_cuda(x[..., :48].contiguous(), bm, cm, dt, a_log)
+
+
+def test_recurrent_plain_paths_refuse_the_card(gen):
+    from repro_torch.models.mamba2 import ssd_chunked
+    from repro_torch.models.rwkv6 import wkv_chunked
+
+    with pytest.raises(ValueError, match="CPU only"):
+        wkv_chunked(*_wkv_inputs(gen, 1, 8, 2, 64, torch.float32))
+    with pytest.raises(ValueError, match="CPU only"):
+        ssd_chunked(*_ssd_inputs(gen, 1, 8, 2, 64, 64, torch.float32))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
