@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port's serving path on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
+    python3 chip_smoke.py --tree DIR   # the same phases over the port's package
+                                 # in DIR/src (a parent commit), no result line
 
 Phases; any failure raises, and the script then exits non-zero and prints
 no result:
@@ -9,19 +11,29 @@ no result:
   device   CUDA present with capability 9.0; the card's name and power limit
            from nvidia-smi.
   build    nvcc builds every kernel from src/repro_torch/csrc (one process
-           per source, all at once).
+           per source, all at once) and prints each kernel's registers and
+           spills (-Xptxas=-v); the tensor-core kernels must not spill at
+           head_dim 128, and the SASS of the two prefill kernels must hold
+           HMMA (tensor-core) and LDGSTS (cp.async) instructions.
   kernels  each hand-written kernel against its plain PyTorch version
            (impl="torch") on the card, and against the fp32 oracle of
            kernels/ref.py, at the target's and the draft's engine shapes and
            at small ones: grouped heads G in {1, 4, 8}, ragged lengths,
            odd S, a ctx == 0 chunk, pages shared with refcount > 1, a pool
            poisoned with finite +-1e4, bf16 and fp32; flash and dense decode
-           also at zamba2's shared-attention shapes (head_dim 80); the WKV
+           also at zamba2's shared-attention shapes (head_dim 80), and both
+           prefill kernels at the edges of their tensor-core tiles (flash at
+           S in {1, 15, 16, 17, 63, 64, 65, 129}, G in {1, 4}, D in {64, 80,
+           128}; paged prefill at C in {1, 16, 17, 65} over ctx in {0, 1, 15,
+           16, 63, 64, 65}, G in {1, 4, 8}, D in {80, 128}, bs in {8, 16});
+           the WKV
            and SSD recurrences at the recurrent phase's prefill and extend
            shapes from a nonzero state, and at small ones (T in {1, 16, 17,
            40}, H in {1, 3}). Then kernel, plain version and one PyTorch
            library call (the yardstick; the port never calls it) are timed
-           at the shapes the path runs.
+           at the shapes the path runs; paged prefill, which no one
+           PyTorch call computes off a paged pool, gets a yardstick of its
+           own: SDPA over K/V pre-gathered contiguous, gather excluded.
   engine   ServingEngine at the full width of the paper's llama-7b target
            (bf16, random weights from the port's seeded init), with a
            llama-1b draft for spec/dsd: 4 requests, ragged prompts of a few
@@ -52,6 +64,8 @@ are the sums over the path phases (engine and recurrent).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import itertools
 import json
 import pathlib
 import subprocess
@@ -73,9 +87,13 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 # times the largest reading on an H100 (PERF.md, PR 11 findings).
 #   fp32: the kernel and the plain version differ only in summation order
 #         (largest reading 3.6e-6)
-#   bf16: the plain version rounds its scores and probabilities to bf16
-#         before the value product; the kernel keeps them in fp32 (largest
-#         readings: flash and paged prefill 6.3e-2, the decodes 2.7e-2)
+#   bf16: the plain version rounds its scores to bf16 and its normalised
+#         probabilities to bf16 before the value product. The decode kernels
+#         keep scores and probabilities in fp32; the two prefill kernels'
+#         tensor-core route keeps the scores in fp32 and rounds the
+#         unnormalised probabilities to bf16 before P V, dividing by the
+#         fp32 sum at the end (largest readings: flash and paged prefill
+#         6.3e-2, the decodes 2.7e-2)
 #   the recurrences (WKV, SSD) compute in fp32 from the same inputs in
 #   kernel (per token) and plain version (chunked): y and the final state
 #   differ by summation order over the T steps in either input type
@@ -89,9 +107,10 @@ TOL_PLAIN = {"float32": {"flash_attention": 2e-5, "decode_attention": 2e-5,
                           "paged_decode_attention": 8e-2,
                           "paged_prefill_attention": 2e-1,
                           "rwkv6_wkv": 1.5e-4, "mamba2_ssd": 1.5e-4}}
-#   against the fp32 oracle a bf16 kernel differs by its output rounding only
-#   (largest readings: flash 1.3e-2, paged prefill 2.2e-2, the decodes
-#   1.3e-3; half an ulp of an element ~3x its row's RMS is 5.9e-3); the
+#   against the fp32 oracle a bf16 kernel differs by its output rounding and,
+#   in the prefill kernels, by the bf16 probabilities (largest readings:
+#   flash 1.3e-2, paged prefill 2.2e-2, the decodes 1.3e-3; half an ulp of
+#   an element ~3x its row's RMS is 5.9e-3); the
 #   recurrences write fp32, so only the order of their sums differs (largest
 #   readings from bf16 inputs: WKV 1.9e-5, SSD 3.2e-5)
 TOL_ORACLE_BF16 = {"flash_attention": 4e-2, "decode_attention": 1e-2,
@@ -152,13 +171,50 @@ def phase_build():
     t = time.perf_counter()
     logs = build.build_all()
     secs = time.perf_counter() - t
-    for src, out in logs.items():
-        for line in out.splitlines():
-            if "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
-                log(f"[ptxas {src}] {line.strip()}")
     print(f"build: {secs:.1f} s for {len(logs)} sources "
           f"({', '.join(build.SOURCES)})", flush=True)
+    for src, out in logs.items():
+        for kernel, regs, spills in _ptxas_kernels(out):
+            print(f"ptxas {src} {kernel}: {regs} registers, {spills}", flush=True)
+            if kernel.endswith("mma_kernel<128>") and not spills.startswith("0 bytes spill stores"):
+                raise RuntimeError(f"{src} {kernel} spills at head_dim 128: {spills}")
     return secs
+
+
+def phase_sass():
+    """The bf16 routes of the prefill kernels must run on the tensor cores
+    (HMMA) and load K/V asynchronously (LDGSTS, the SASS of cp.async)."""
+    from repro_torch.kernels import build
+
+    cuobjdump = pathlib.Path(build._nvcc()).with_name("cuobjdump")
+    for src in ("flash_attention", "paged_prefill_attention"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(build._lib_path(src))],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        counts = {op: sum(f" {op}." in ln or f" {op} " in ln for ln in sass.splitlines())
+                  for op in ("HMMA", "LDGSTS", "LDSM")}
+        print(f"sass {src}: {counts}", flush=True)
+        if not counts["HMMA"] or not counts["LDGSTS"]:
+            raise RuntimeError(f"{src}: no tensor-core or cp.async instructions in its SASS")
+
+
+def _ptxas_kernels(log_text: str):
+    """(kernel<template args>, registers, spill line) for each entry function
+    in a `-Xptxas=-v` log."""
+    import re
+
+    out, name, spills = [], None, ""
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?\d([A-Za-z_]*kernel)I(\w*?)EEv", line)
+        if m:
+            args = ("bf16," if "bfloat16" in m.group(2) else "fp32," if m.group(2)[:1] == "f"
+                    else "") + ",".join(re.findall(r"Li(\d+)E", m.group(2) + "E"))
+            name = f"{m.group(1)}<{args}>"
+        elif "spill stores" in line:
+            spills = line.split(",", 1)[1].strip()
+        elif "Used" in line and "registers" in line and name:
+            out.append((name, int(re.search(r"Used (\d+) registers", line).group(1)), spills))
+            name = None
+    return out
 
 
 # ---------------------------------------------------------------- helpers
@@ -172,7 +228,10 @@ def _rel(a, b) -> tuple[float, float]:
 
 def _time_ms(fn, iters: int = 20) -> float:
     """Mean device ms per call, each call after an L2 flush (the 50 MB L2
-    would otherwise hold a decode's whole K/V between calls)."""
+    would otherwise hold a decode's whole K/V between calls). The card spins
+    for ~0.5 ms after the flush, so the host has queued the call before the
+    start event is reached: the time is the device's, without the host's
+    cost of issuing the call (a wrapper's checks and allocation)."""
     import torch
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
@@ -181,6 +240,7 @@ def _time_ms(fn, iters: int = 20) -> float:
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -226,11 +286,25 @@ class KernelCheck:
 
     def record(self) -> dict:
         t = self.timing
-        return {"name": self.name, "route": "cuda", "source": self.source,
-                "replaces": self.replaces, "launches": self.path_launches,
-                "max_abs_err": self.max_abs_err, "ms": t["ms"], "kernel_ms": t["ms"],
-                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        rec = {"name": self.name, "route": "cuda", "source": self.source,
+               "replaces": self.replaces, "launches": self.path_launches,
+               "max_abs_err": self.max_abs_err, "ms": t["ms"], "kernel_ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+               "library_ratio": _ratio(t["ms"], t["library_ms"])}
+        if "yardstick_ms" in t:
+            rec.update(yardstick=t["yardstick"], yardstick_ms=t["yardstick_ms"],
+                       yardstick_ratio=_ratio(t["ms"], t["yardstick_ms"]))
+        if self.timing_d80:
+            d80 = dict(self.timing_d80)
+            d80["library_ratio"] = _ratio(d80["ms"], d80["library_ms"])
+            rec["head_dim_80"] = d80
+        return rec
+
+
+def _ratio(ms, library_ms):
+    """Kernel time over the yardstick's, timed in the same call."""
+    return None if library_ms is None else ms / library_ms
 
 
 def _bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -297,14 +371,18 @@ def phase_kernels(gen):
     rec_slots = s_rec + MAX_NEW + EXTEND                         # the grown cache
     es = 2  # bytes per bf16 element at the timed (main-path) shapes
 
-    # ---- flash: (B, S, H, KV, D, dtype); odd S, G in {1, 4, 8}
+    # ---- flash: (B, S, H, KV, D, dtype); odd S, G in {1, 4, 8}, then the
+    # edges of the tensor-core tiles (64 query rows, 16 a warp, 64-key tiles)
     c = checks["flash_attention"]
-    for b, s, h, kv, d, dt in [(1, max(PROMPT_LENS), kvh7 * g7, kvh7, d7, bf16),
-                               (1, max(PROMPT_LENS), kvh1 * g1, kvh1, d1, bf16),
-                               (REC_BATCH, s_rec, hz, zam.attn.num_kv_heads, dz, bf16),
-                               (2, 77, 8, 2, 80, f32),
-                               (2, 77, 8, 8, 128, f32), (2, 129, 16, 4, 64, bf16),
-                               (1, 200, 32, 4, 128, f32), (3, 33, 8, 1, 32, f32)]:
+    flash_cases = [(1, max(PROMPT_LENS), kvh7 * g7, kvh7, d7, bf16),
+                   (1, max(PROMPT_LENS), kvh1 * g1, kvh1, d1, bf16),
+                   (REC_BATCH, s_rec, hz, zam.attn.num_kv_heads, dz, bf16),
+                   (2, 77, 8, 2, 80, f32),
+                   (2, 77, 8, 8, 128, f32), (2, 129, 16, 4, 64, bf16),
+                   (1, 200, 32, 4, 128, f32), (3, 33, 8, 1, 32, f32)]
+    flash_cases += [(2, s, 2 * g, 2, d, bf16) for s, g, d in itertools.product(
+        (1, 15, 16, 17, 63, 64, 65, 129), (1, 4), (64, 80, 128))]
+    for b, s, h, kv, d, dt in flash_cases:
         q, k, v = rand(b, s, h, d, dtype=dt), rand(b, s, kv, d, dtype=dt), rand(b, s, kv, d, dtype=dt)
         got = ops.flash_attention(q, k, v)
         plain = ops.flash_attention(q, k, v, impl="torch")
@@ -462,17 +540,21 @@ def phase_kernels(gen):
     del pool, args
 
     # ---- paged prefill: (C, ctx, KV, G, D, bs, dtype); ctx == 0 gets the
-    # dump page; rows tiled over several blocks when C * G > 64
+    # dump page; rows tiled over several blocks when C * G > 64; then the
+    # edges of the tensor-core tiles: 64-key tiles that straddle the
+    # ctx/chunk boundary and ragged last pages, 16-row fragments that mix
+    # tokens (G 4, 8)
     c = checks["paged_prefill_attention"]
     chunk = 256
-    main_ctx = max(PROMPT_LENS) - chunk
-    for cc, ctx, kv, g, d, bs, dt in [
-            (chunk, 0, kvh7, g7, d7, BLOCK, bf16),
-            (max(PROMPT_LENS) - chunk, chunk, kvh7, g7, d7, BLOCK, bf16),
-            (chunk, 0, kvh1, g1, d1, BLOCK, bf16),
-            (max(PROMPT_LENS) - chunk, chunk, kvh1, g1, d1, BLOCK, bf16),
-            (37, 13, 2, 4, 64, 8, f32), (20, 0, 4, 8, 128, 16, f32),
-            (150, 45, 2, 2, 128, 8, f32), (9, 100, 1, 8, 32, 16, bf16)]:
+    paged_cases = [(chunk, 0, kvh7, g7, d7, BLOCK, bf16),
+                   (max(PROMPT_LENS) - chunk, chunk, kvh7, g7, d7, BLOCK, bf16),
+                   (chunk, 0, kvh1, g1, d1, BLOCK, bf16),
+                   (max(PROMPT_LENS) - chunk, chunk, kvh1, g1, d1, BLOCK, bf16),
+                   (37, 13, 2, 4, 64, 8, f32), (20, 0, 4, 8, 128, 16, f32),
+                   (150, 45, 2, 2, 128, 8, f32), (9, 100, 1, 8, 32, 16, bf16)]
+    paged_cases += [(cc, ctx, 2, g, d, bs, bf16) for cc, ctx, g, d, bs in itertools.product(
+        (1, 16, 17, 65), (0, 1, 15, 16, 63, 64, 65), (1, 4, 8), (80, 128), (8, 16))]
+    for cc, ctx, kv, g, d, bs, dt in paged_cases:
         nb = max(-(-ctx // bs), 1)
         nbp = nb + 5
         kpg = torch.full((nbp, kv, bs, d), 1e4, device=cuda).to(dt)
@@ -496,14 +578,34 @@ def phase_kernels(gen):
         c.hold(got, plain, oracle, dt, f"C={cc} ctx={ctx} KV={kv} G={g} D={d} bs={bs} {dt}")
         if (cc, ctx, kv) == (max(PROMPT_LENS) - chunk, chunk, kvh7):
             timed = (q, kpg, vpg, table, ctx, ks, vs)
+    # the yardstick: one SDPA call over the context gathered contiguous with
+    # the chunk's K/V before the timed window, the chunk's offset causality
+    # as a boolean mask (key t seen by token i iff t <= ctx + i)
+    q, kpg, vpg, table, ctx, ks, vs = timed
+    cc, h, d = q.shape[1], q.shape[2], q.shape[3]
+    kv = ks.shape[2]
+
+    def gathered(pages, own):
+        got = pages[table.long()].transpose(1, 2).reshape(-1, kv, d)[:ctx]
+        return torch.cat([got, own[0]]).transpose(0, 1)[None].contiguous()
+
+    kg, vg = gathered(kpg, ks), gathered(vpg, vs)
+    qh = q.transpose(1, 2).contiguous()
+    mask = (torch.arange(ctx + cc, device=cuda)[None, :]
+            <= ctx + torch.arange(cc, device=cuda)[:, None])
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask, enable_gqa=True)
+
+    _, rel = _rel(sdpa().transpose(1, 2), ops.paged_prefill_attention(*timed))
+    log(f"  paged_prefill_attention yardstick (SDPA over pre-gathered K/V) vs kernel {rel:.2e}")
     c.timing = {
         "ms": _time_ms(lambda: ops.paged_prefill_attention(*timed)),
         "plain_ms": _time_ms(lambda: ops.paged_prefill_attention(*timed, impl="torch")),
         "library_ms": None,
+        "yardstick_ms": _time_ms(sdpa),
+        "yardstick": "SDPA over pre-gathered K/V, gather excluded",
     }
-    q, _, _, table, ctx, ks, _ = timed
-    cc, h, d = q.shape[1], q.shape[2], q.shape[3]
-    kv = ks.shape[2]
     c.timing["bound_ms"], c.timing["bound_by"] = _bound(
         (2 * cc * h * d + 2 * (ctx + cc) * kv * d) * es + 4 * table.shape[0],
         4 * d * h * (cc * ctx + cc * (cc + 1) / 2))
@@ -584,14 +686,20 @@ def phase_kernels(gen):
         print(f"{ck.name}: largest row-normalised error (vs plain, vs fp32 oracle): "
               + ", ".join(f"{k} {p:.3e}, {o:.3e}" for k, (p, o) in sorted(ck.worst.items())),
               flush=True)
-        print(f"{ck.name}: timed (ms) kernel {ck.timing['ms']:.4f}, plain "
-              f"{ck.timing['plain_ms']:.4f}, library {ck.timing['library_ms']}, bound "
-              f"{ck.timing['bound_ms']:.4f} ({ck.timing['bound_by']})", flush=True)
+        t = ck.timing
+        lib = (f"library {t['library_ms']:.4f} (kernel/library "
+               f"{_ratio(t['ms'], t['library_ms']):.2f})" if t["library_ms"] else "library None")
+        if "yardstick_ms" in t:
+            lib += (f", {t['yardstick']} {t['yardstick_ms']:.4f} (kernel/yardstick "
+                    f"{_ratio(t['ms'], t['yardstick_ms']):.2f})")
+        print(f"{ck.name}: timed (ms) kernel {t['ms']:.4f}, plain {t['plain_ms']:.4f}, {lib}, "
+              f"bound {t['bound_ms']:.4f} ({t['bound_by']})", flush=True)
         t80 = ck.timing_d80
         if t80:
             print(f"{ck.name}: timed at zamba2's head_dim 80 shape (ms) kernel {t80['ms']:.4f}, "
-                  f"plain {t80['plain_ms']:.4f}, library {t80['library_ms']:.4f}, bound "
-                  f"{t80['bound_ms']:.4f} ({t80['bound_by']})", flush=True)
+                  f"plain {t80['plain_ms']:.4f}, library {t80['library_ms']:.4f} (kernel/library "
+                  f"{_ratio(t80['ms'], t80['library_ms']):.2f}), bound {t80['bound_ms']:.4f} "
+                  f"({t80['bound_by']})", flush=True)
     return checks
 
 
@@ -629,9 +737,9 @@ def phase_engine(checks):
             ("standalone", "continuous", True), ("dpd", "continuous", True),
             ("spec", "serialized", "auto"), ("dsd", "continuous", "auto")]
 
-    def serve(kind, policy, paged):
+    def serve(kind, policy, paged, exec_cfg=ExecConfig()):
         """One engine run over the prompts; (engine, finished, wall s)."""
-        kw = {}
+        kw = {"exec_cfg": exec_cfg}
         if kind in ("spec", "dsd"):
             kw.update(draft_cfg=dcfg, draft_params=dparams, spec=SpecConfig(num_draft_tokens=4))
         if kind in ("dpd", "dsd"):
@@ -650,9 +758,12 @@ def phase_engine(checks):
 
     for ck in checks.values():
         ck.kernel.launches = 0
+    streams = {}
     for kind, policy, paged in runs:
         before = {n: ck.kernel.launches for n, ck in checks.items()}
         eng, done, wall = serve(kind, policy, paged)
+        streams[f"{kind}/{policy}/paged={paged}"] = [
+            r.out_tokens for r in sorted(done, key=lambda r: r.req_id)]
         if len(done) != len(prompts) or any(
                 len(r.out_tokens) != MAX_NEW or r.status != "ok" for r in done):
             raise RuntimeError(f"{kind}/{policy}: requests did not all finish with "
@@ -661,18 +772,36 @@ def phase_engine(checks):
             raise RuntimeError(f"{kind}/{policy}: paged run gathered "
                                f"{eng.pool.gather_calls} times")
         used = {n: ck.kernel.launches - before[n] for n, ck in checks.items()}
+        # the greedy streams, in submission order, as one digest: two
+        # versions of the kernels that serve the same tokens print the same
+        tokens = [t for r in sorted(done, key=lambda r: r.req_id) for t in r.out_tokens]
+        digest = hashlib.sha1(np.asarray(tokens, dtype=np.int64).tobytes()).hexdigest()[:12]
         ci = GRID_CI["ciso"]
         carbon = sum((request_carbon(u.busy_s, u.energy_j, CHIP_DB[n], ci_g_per_kwh=ci).total_g
                       for n, u in eng.use.items()))
         print(f"engine {kind:10s} {policy:10s} paged={str(eng.paged):5s} wall {wall:.2f} s "
               f"on this card; cost model ({'+'.join(eng.use)}, not measured): clock "
-              f"{eng.clock:.4f} s, {carbon * 1e3:.4f} mgCO2; launches {used}", flush=True)
+              f"{eng.clock:.4f} s, {carbon * 1e3:.4f} mgCO2; streams {digest}; launches {used}",
+              flush=True)
         if eng.rounds:
             log(f"  spec acceptance {eng.acceptance_rate:.3f} over {eng.rounds} rounds")
         del eng
         torch.cuda.empty_cache()
     for ck in checks.values():
         ck.path_launches += ck.kernel.launches
+
+    # each run's greedy streams against the plain path's (impl="torch", no
+    # kernel) on the card: the tokens a run shares with it before each
+    # request's first divergence. With random weights many steps are near
+    # ties, so any change in rounding can flip one and the rest of that
+    # stream follows; this is read, not held to a limit
+    _, done, _ = serve("standalone", "serialized", True, ExecConfig(impl="torch"))
+    want = [r.out_tokens for r in sorted(done, key=lambda r: r.req_id)]
+    agree = {run: sum(_common_prefix(a, b) for a, b in zip(got, want))
+             for run, got in streams.items()}
+    print(f"engine streams vs the plain path (standalone/serialized/paged=True, impl=torch), "
+          f"tokens before each request's first divergence, of {len(prompts) * MAX_NEW}: "
+          f"{agree}", flush=True)
 
     # first-token logits, kernel path vs the plain path, on the card, for the
     # target and the draft: whole-prompt prefill (flash) and a two-chunk
@@ -721,6 +850,7 @@ def phase_engine(checks):
     for e in sorted(on_card, key=lambda e: -e.device_time_total)[:10]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}",
               flush=True)
+    _print_port_kernels(on_card)
 
 
 # -------------------------------------------------------------- recurrent
@@ -886,8 +1016,26 @@ def phase_recurrent(checks, card):
         for e in sorted(on_card, key=lambda e: -e.device_time_total)[:8]:
             print(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}",
                   flush=True)
+        _print_port_kernels(on_card)
         del params, cache, saved, ext_cache, pc
         torch.cuda.empty_cache()
+
+
+def _print_port_kernels(on_card) -> None:
+    """The profile's rows of the port's own kernels (the `*_kernel`
+    functions of csrc/, each in its source's anonymous namespace): device
+    ms, launches, ms a launch."""
+    import re
+
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    names = {n for f in csrc.glob("*.cu") for n in re.findall(r"(\w+_kernel)\(", f.read_text())}
+    for e in sorted(on_card, key=lambda e: -e.device_time_total):
+        if not e.key.startswith("void (anonymous namespace)::"):
+            continue
+        name = e.key.split("::", 1)[1].split("(", 1)[0]
+        if name.split("<", 1)[0] in names:
+            print(f"  port kernel {name}: {e.device_time_total / 1e3:.3f} ms over {e.count} "
+                  f"launches, {e.device_time_total / 1e3 / e.count:.4f} ms each", flush=True)
 
 
 def _plain_half_chunk(fn):
@@ -913,6 +1061,13 @@ def _plain_half_chunk(fn):
         return fn()
 
 
+def _common_prefix(a, b) -> int:
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n
+
+
 def _clone(cache: dict) -> dict:
     return {k: v.clone() for k, v in cache.items()}
 
@@ -925,9 +1080,17 @@ def _leaves(tree):
     return [tree]
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
 
+    # --tree DIR: every phase over the port's package in DIR/src (another
+    # checkout, e.g. a parent commit unpacked with `git archive`), so that
+    # two versions are held, timed and profiled by one harness in one call;
+    # skips the SASS check (an older tree's prefill kernels had no tensor-core
+    # route) and prints no result line
+    other = pathlib.Path(argv[argv.index("--tree") + 1]).resolve() if "--tree" in argv else None
+    if other is not None:
+        sys.path.insert(0, str(other / "src"))
     t0 = time.perf_counter()
     card = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False      # fp32 plain versions in full fp32
@@ -936,6 +1099,8 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    if other is None:
+        phase_sass()
     checks = phase_kernels(gen)
     phase_engine(checks)
     torch.cuda.empty_cache()
@@ -945,6 +1110,9 @@ def main() -> int:
         raise RuntimeError(f"kernels never launched on a path: {idle}")
     log(f"total {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if other is not None:
+        print(f"tree {other}: every phase passed on {card}", flush=True)
+        return 0
     print(card)
     print(json.dumps({"kernels": [ck.record() for ck in checks.values()]}))
     print(json.dumps({"ok": True, "device": {
@@ -954,4 +1122,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,11 +1,15 @@
 // Shared pieces of the kernels: type conversion, warp reductions, the
 // launch helper and the error string every library exports; and, for the
-// attention kernels, the online-softmax fold of one key tile into a warp's
-// query rows and the merge of per-warp partial softmax states.
+// attention kernels' CUDA-core route, the online-softmax fold of one key
+// tile into a warp's query rows and the merge of per-warp partial softmax
+// states.
 //
-// Every attention kernel computes in fp32 and casts the output to the input
-// type, with NEG_INF = -1e30 for masked scores and the softmax denominator
-// floored at 1e-30, as the TPU kernels in src/repro/kernels/ do.
+// The CUDA-core route computes in fp32 and casts the output to the input
+// type: the decode kernels take it for both input types, the two prefill
+// kernels (flash, paged prefill) only for fp32, since their bf16 inputs go
+// to the tensor-core core of mma_attention.cuh. Both routes use
+// NEG_INF = -1e30 for masked scores and floor the softmax denominator at
+// 1e-30, as the TPU kernels in src/repro/kernels/ do.
 //
 // A warp owns RPW query rows; lane `l` owns the output columns
 // d = l + 32 * j (j < DC = ceil(D / 32)). Every head dim D is a template

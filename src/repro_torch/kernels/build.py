@@ -145,6 +145,12 @@ def check(name: str, t, shape: tuple, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_aligned(name: str, t) -> None:
+    """The tensor-core kernels copy rows in 16-byte pieces (cp.async)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary for the bf16 kernels")
+
+
 def check_float(name: str, t) -> None:
     if t.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: the CUDA kernels take float32 or bfloat16, "

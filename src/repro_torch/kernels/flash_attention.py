@@ -43,6 +43,9 @@ def flash_attention_cuda(q, k, v, causal: bool = True):
     build.check("q", q, (b, s, h, d), q.dtype, q.device)
     build.check("k", k, (b, s, kvh, d), q.dtype, q.device)
     build.check("v", v, (b, s, kvh, d), q.dtype, q.device)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            build.check_aligned(name, t)
     o = torch.empty_like(q)
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   b, s, h, kvh, d, int(causal), build.is_bf16(q),

@@ -124,6 +124,10 @@ def paged_prefill_attention_cuda(q, k_pages, v_pages, table, ctx: int, k_self,
     build.check("table", table, (nb,), torch.int32, q.device)
     build.check("k_self", k_self, (1, c, kvh, d), q.dtype, q.device)
     build.check("v_self", v_self, (1, c, kvh, d), q.dtype, q.device)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                        ("k_self", k_self), ("v_self", v_self)):
+            build.check_aligned(name, t)
     o = torch.empty_like(q)
     PREFILL_KERNEL.launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),

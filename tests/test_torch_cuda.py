@@ -10,6 +10,8 @@ CUDA tensors, its wrapper must refuse what the kernel does not take, and the
 model's use_kernels=False path must refuse CUDA tensors. This file imports
 neither JAX nor the reference package: the card's machine has neither.
 """
+import itertools
+
 import pytest
 import torch
 
@@ -50,8 +52,16 @@ def _close(a, b, dtype):
     assert err < TOL[dtype], float(err)
 
 
+# the edges of the tensor-core route's tiles (64 query rows, 16 per warp,
+# 64-key tiles, 16-column k-steps): S at and around 1, 16, 64 and 128, one
+# and four query heads per kv head, head dims 64, 80 and 128
+FLASH_TILE_EDGES = [(s, 2 * g, 2, d) for s, g, d in itertools.product(
+    (1, 15, 16, 17, 63, 64, 65, 129), (1, 4), (64, 80, 128))]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,h,kv,d", [(77, 8, 8, 128), (33, 8, 2, 64), (130, 16, 2, 32)])
+@pytest.mark.parametrize("s,h,kv,d", [(77, 8, 8, 128), (33, 8, 2, 64), (130, 16, 2, 32)]
+                         + FLASH_TILE_EDGES)
 def test_flash_kernel_matches_plain(gen, s, h, kv, d, dtype):
     q, k, v = _rand(gen, 2, s, h, d, dtype=dtype), _rand(gen, 2, s, kv, d, dtype=dtype), \
         _rand(gen, 2, s, kv, d, dtype=dtype)
@@ -89,14 +99,30 @@ def test_decode_kernels_match_plain(gen, kv, g, d, dtype):
     assert pag.DECODE_KERNEL.launches == before + 1
 
 
+# the edges of the tensor-core route's tiles: chunks of 1, 16, 17 and 65
+# tokens over contexts at and around 1, 16 and 64 (a 64-key tile that
+# straddles the ctx/chunk boundary and a ragged last page), pages of 8 and
+# 16, and G of 1, 4 and 8 (16-row fragments that mix tokens)
+PAGED_TILE_EDGES = list(itertools.product((1, 16, 17, 65), (0, 1, 15, 16, 63, 64, 65),
+                                          (1, 4, 8), (80, 128), (8, 16)))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,ctx,g,d", [(37, 13, 4, 64), (20, 0, 8, 64), (150, 45, 1, 64),
-                                      (37, 13, 4, 80)])
-def test_paged_prefill_kernel_matches_plain(gen, c, ctx, g, d, dtype):
-    kv, bs = 2, 8
+@pytest.mark.parametrize("c,ctx,g,d,bs", [(37, 13, 4, 64, 8), (20, 0, 8, 64, 8),
+                                         (150, 45, 1, 64, 8), (37, 13, 4, 80, 8)]
+                         + PAGED_TILE_EDGES)
+def test_paged_prefill_kernel_matches_plain(gen, c, ctx, g, d, bs, dtype):
+    kv = 2
     nb = max(-(-ctx // bs), 1)
     kp, vp = _rand(gen, nb + 3, kv, bs, d, dtype=dtype), _rand(gen, nb + 3, kv, bs, d, dtype=dtype)
     table = torch.randperm(nb + 2, generator=gen, device="cuda")[:nb].int()
+    # finite poison in every pool slot the chunk must not read: pages off
+    # the table, the dump page, and the last page's rows past ctx
+    seen = torch.zeros(nb + 3, bs, dtype=torch.bool, device="cuda")
+    seen.view(-1)[(table.long()[:, None] * bs + torch.arange(bs, device="cuda")).view(-1)[
+        torch.arange(nb * bs, device="cuda") < ctx]] = True
+    kp = kp.masked_fill(~seen[:, None, :, None], 1e4)
+    vp = vp.masked_fill(~seen[:, None, :, None], -1e4)
     table = table if ctx else table[:0]
     q = _rand(gen, 1, c, kv * g, d, dtype=dtype)
     ks, vs = _rand(gen, 1, c, kv, d, dtype=dtype), _rand(gen, 1, c, kv, d, dtype=dtype)
@@ -202,6 +228,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                                   k[:, :1].transpose(1, 2).contiguous(), pos)
     with pytest.raises(ValueError, match="CUDA"):
         fla.flash_attention_cuda(q.cpu(), k.cpu(), k.cpu())
+    # the bf16 route copies rows in 16-byte pieces: a view one element off
+    # a 16-byte boundary is refused, not read misaligned
+    kb = k.bfloat16()
+    off = torch.empty(kb.numel() + 1, dtype=torch.bfloat16, device="cuda")[1:].view(kb.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fla.flash_attention_cuda(off, kb, kb)
+    with pytest.raises(ValueError, match="16-byte"):
+        pag.paged_prefill_attention_cuda(off[:, :1], kb.transpose(1, 2).contiguous(),
+                                         kb.transpose(1, 2).contiguous(),
+                                         torch.zeros(1, dtype=torch.int32, device="cuda"), 0,
+                                         kb[:, :1], kb[:, :1])
 
 
 def test_blocked_path_refuses_the_card(gen):
