@@ -1,15 +1,14 @@
 // Shared pieces of the kernels: type conversion, warp reductions, the
-// launch helper and the error string every library exports; and, for the
-// attention kernels' CUDA-core route, the online-softmax fold of one key
-// tile into a warp's query rows and the merge of per-warp partial softmax
-// states.
+// 16-byte cp.async copy, the launch helper and the error string every
+// library exports; and, for the attention kernels' fp32 CUDA-core route,
+// the online-softmax fold of one key tile into a warp's query rows.
 //
-// The CUDA-core route computes in fp32 and casts the output to the input
-// type: the decode kernels take it for both input types, the two prefill
-// kernels (flash, paged prefill) only for fp32, since their bf16 inputs go
-// to the tensor-core core of mma_attention.cuh. Both routes use
-// NEG_INF = -1e30 for masked scores and floor the softmax denominator at
-// 1e-30, as the TPU kernels in src/repro/kernels/ do.
+// The CUDA-core route computes in fp32: the two prefill kernels (flash,
+// paged prefill) take it for fp32 inputs, since their bf16 inputs go to the
+// tensor-core core of mma_attention.cuh; the decodes have a core of their
+// own (decode_core.cuh). Every attention kernel uses NEG_INF = -1e30 for
+// masked scores and floors the softmax denominator at 1e-30, as the TPU
+// kernels in src/repro/kernels/ do.
 //
 // A warp owns RPW query rows; lane `l` owns the output columns
 // d = l + 32 * j (j < DC = ceil(D / 32)). Every head dim D is a template
@@ -41,6 +40,33 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// Whether a pointer is 16-byte aligned, as cp.async and 16-byte vector
+// loads and stores need (rows are D * sizeof(T) bytes, a multiple of 16 at
+// every supported head dim and type).
+static inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with valid == false the destination is zeroed
+// and nothing is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Columns per lane for a head of D columns.
@@ -189,54 +215,6 @@ __device__ __forceinline__ void store_rows(const RowState<cols(D), RPW>& st, Out
   }
 }
 
-// Merge the partial states of the block's WARPS warps (each folded its own
-// share of the keys) for rows [0, nrows), optionally with one extra key per
-// row (score self_s[i] against the value row self_v shared by all rows: the
-// decode step's own token), and write row i to out + i * D. `scratch` holds
-// WARPS * RPW * (D + 2) floats and may alias the key tiles: the block
-// synchronises before writing it.
-template <int D, int RPW, int WARPS, typename T>
-__device__ __forceinline__ void merge_and_store(const RowState<cols(D), RPW>& st, float* scratch,
-                                                int nrows, const float* self_s,
-                                                const T* __restrict__ self_v, T* __restrict__ out,
-                                                int warp, int lane) {
-  constexpr int DC = cols(D);
-  float* m_s = scratch;                       // [WARPS][RPW]
-  float* l_s = m_s + WARPS * RPW;             // [WARPS][RPW]
-  float* a_s = l_s + WARPS * RPW;             // [WARPS][RPW][D]
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    if (lane == 0) {
-      m_s[warp * RPW + i] = st.m[i];
-      l_s[warp * RPW + i] = st.l[i];
-    }
-#pragma unroll
-    for (int j = 0; j < DC; ++j)
-      if (in_head<D>(lane, j)) a_s[(warp * RPW + i) * D + lane + 32 * j] = st.acc[i][j];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < nrows * D; e += blockDim.x) {
-    const int i = e / D, d = e % D;
-    float m = self_s ? self_s[i] : NEG_INF;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) m = fmaxf(m, m_s[w * RPW + i]);
-    float l = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float c = expf(m_s[w * RPW + i] - m);
-      l += l_s[w * RPW + i] * c;
-      a += a_s[(w * RPW + i) * D + d] * c;
-    }
-    if (self_s) {
-      const float p = expf(self_s[i] - m);
-      l += p;
-      a += p * to_f(self_v[d]);
-    }
-    out[i * D + d] = from_f<T>(a / fmaxf(l, 1e-30f));
-  }
-}
-
 }  // namespace rt
 
 // Dispatch a head_dim of 32, 64, 80 or 128 to the compile-time HD.
@@ -248,23 +226,6 @@ __device__ __forceinline__ void merge_and_store(const RowState<cols(D), RPW>& st
     case 128: { constexpr int HD = 128; __VA_ARGS__; }       \
     default: return (int)cudaErrorInvalidValue;              \
   }
-
-// Dispatch the rows a warp holds (1, 2, 4 or 8) to the compile-time RPW.
-#define RT_DISPATCH_RPW(R, ...)                              \
-  switch (R) {                                               \
-    case 1: { constexpr int RPW = 1; __VA_ARGS__; }          \
-    case 2: { constexpr int RPW = 2; __VA_ARGS__; }          \
-    case 4: { constexpr int RPW = 4; __VA_ARGS__; }          \
-    case 8: { constexpr int RPW = 8; __VA_ARGS__; }          \
-    default: return (int)cudaErrorInvalidValue;              \
-  }
-
-// Smallest supported rows-per-warp (1, 2, 4, 8) that holds min(g, 8) rows.
-static inline int rt_rows_per_warp(int g) {
-  int r = 1;
-  while (r < g && r < 8) r *= 2;
-  return r;
-}
 
 // Opt the kernel in to `smem` bytes of dynamic shared memory and launch it.
 template <typename Kernel, typename... Args>

@@ -133,7 +133,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
                 int KV, int causal, cudaStream_t stream) {
-  if (!mma::aligned16(q) || !mma::aligned16(k) || !mma::aligned16(v) || !mma::aligned16(o))
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return (int)cudaErrorMisalignedAddress;
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   dim3 grid(H, B, (S + mma::ROWS - 1) / mma::ROWS);

@@ -63,33 +63,6 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return sizeof(bf16) * pitch(D) * (ROWS + 2 * STAGES * KT);
 }
 
-// Whether every global pointer a launch passes is 16-byte aligned, as
-// cp.async and the 16-byte output stores need (rows are D * 2 bytes, a
-// multiple of 16 at every supported head dim).
-static inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; with valid == false the destination is zeroed
-// and nothing is read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])

@@ -170,8 +170,8 @@ template <int D>
 int launch_bf16(const void* q, const void* kp, const void* vp, const int* table, int ctx,
                 const void* ks, const void* vs, void* o, int C, int KV, int G, int bs,
                 cudaStream_t stream) {
-  if (!mma::aligned16(q) || !mma::aligned16(kp) || !mma::aligned16(vp) || !mma::aligned16(ks)
-      || !mma::aligned16(vs) || !mma::aligned16(o))
+  if (!aligned16(q) || !aligned16(kp) || !aligned16(vp) || !aligned16(ks)
+      || !aligned16(vs) || !aligned16(o))
     return (int)cudaErrorMisalignedAddress;
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   const int npages = (ctx + bs - 1) / bs;

@@ -146,9 +146,10 @@ def check(name: str, t, shape: tuple, dtype, device) -> None:
 
 
 def check_aligned(name: str, t) -> None:
-    """The tensor-core kernels copy rows in 16-byte pieces (cp.async)."""
+    """The attention kernels copy rows in 16-byte pieces (cp.async): the
+    prefill kernels' bf16 route and both decodes in either type."""
     if t.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary for the bf16 kernels")
+        raise ValueError(f"{name} must start on a 16-byte boundary for the attention kernels")
 
 
 def check_float(name: str, t) -> None:

@@ -17,12 +17,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import attend_block
 
 DECODE_KERNEL = build.CudaKernel(
     "paged_decode_attention", "paged_decode_launch",
-    [build.PTR] * 8 + [build.INT] * 7 + [build.PTR])
+    [build.PTR] * 10 + [build.INT] * 9 + [build.PTR])
 PREFILL_KERNEL = build.CudaKernel(
     "paged_prefill_attention", "paged_prefill_launch",
     [build.PTR] * 4 + [build.INT] + [build.PTR] * 3 + [build.INT] * 6
@@ -46,7 +47,11 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, k_new, v_new,
 
 def paged_decode_attention_cuda(q, k_pages, v_pages, tables, lengths, k_new,
                                 v_new):
-    """The hand-written kernel; raises on anything it does not take."""
+    """The hand-written kernel; raises on anything it does not take. The
+    keys are split for a table's full width, tables.shape[1] * bs tokens
+    (the kernel clamps every length to it, so the splits cover every key
+    whatever the lengths hold); the caller's max_len is only the plain
+    version's gather width."""
     if not q.is_cuda:
         raise ValueError("paged_decode_attention_cuda needs CUDA tensors")
     b, _, h, d = q.shape
@@ -56,6 +61,8 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, tables, lengths, k_new,
     build.check_head_dim(d)
     if h % kvh or nb < 1:
         raise ValueError(f"bad grouping {h}/{kvh} or empty tables {tuple(tables.shape)}")
+    if bs & (bs - 1):
+        raise ValueError(f"page size {bs} is not a power of two")
     build.check("q", q, (b, 1, h, d), q.dtype, q.device)
     build.check("k_pages", k_pages, (nbp, kvh, bs, d), q.dtype, q.device)
     build.check("v_pages", v_pages, (nbp, kvh, bs, d), q.dtype, q.device)
@@ -63,11 +70,16 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, tables, lengths, k_new,
     build.check("lengths", lengths, (b,), torch.int32, q.device)
     build.check("k_new", k_new, (b, 1, kvh, d), q.dtype, q.device)
     build.check("v_new", v_new, (b, 1, kvh, d), q.dtype, q.device)
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("k_new", k_new), ("v_new", v_new)):
+        build.check_aligned(name, t)
+    n, chunk, ws, tickets = dec.split_launch(q, kvh, nb * bs)
     o = torch.empty_like(q)
     DECODE_KERNEL.launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
         lengths.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), o.data_ptr(),
-        b, kvh, h // kvh, d, bs, nb, build.is_bf16(q), build.stream_ptr(q))
+        dec.ptr(ws), dec.ptr(tickets), b, kvh, h // kvh, d, bs, nb, n, chunk,
+        build.is_bf16(q), build.stream_ptr(q))
     return o
 
 

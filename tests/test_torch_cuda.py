@@ -99,6 +99,162 @@ def test_decode_kernels_match_plain(gen, kv, g, d, dtype):
     assert pag.DECODE_KERNEL.launches == before + 1
 
 
+# the decodes' split and tile edges (64-key tiles, one to eight splits of a
+# sequence at these small grids), every head dim, grouped heads up to two
+# row groups (G 16), one and four sequences
+DECODE_KEYS = (1, 63, 64, 65, 127, 128, 129, 459)
+DECODE_EDGES = list(itertools.product(DECODE_KEYS, (1, 4), (1, 4, 8, 16), (32, 64, 80, 128)))
+
+
+def _poison_past(x, lengths, value):
+    """x (B, KV, S, D) with every slot t >= lengths[b] set to value."""
+    t = torch.arange(x.shape[2], device=x.device)[None, None, :, None]
+    return x.masked_fill(t >= lengths[:, None, None, None], value)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("keys,b,g,d", DECODE_EDGES)
+def test_dense_decode_at_split_edges(gen, keys, b, g, d, dtype):
+    kv = 2
+    s = keys + 3
+    pos = torch.tensor([keys - 1, keys // 2, 0, keys - 1][:b], dtype=torch.int32, device="cuda")
+    q = _rand(gen, b, 1, kv * g, d, dtype=dtype)
+    kc, vc = _rand(gen, b, kv, s, d, dtype=dtype), _rand(gen, b, kv, s, d, dtype=dtype)
+    before = dec.KERNEL.launches
+    got = ops.decode_attention(q, kc, vc, pos)
+    assert dec.KERNEL.launches == before + 1
+    _close(got, ops.decode_attention(q, kc, vc, pos, impl="torch"), dtype)
+    # bit-identical on a repeat, and with finite poison past pos
+    assert torch.equal(ops.decode_attention(q, kc, vc, pos), got)
+    kp, vp = _poison_past(kc, pos + 1, 1e4), _poison_past(vc, pos + 1, -1e4)
+    assert torch.equal(ops.decode_attention(q, kp, vp, pos), got)
+
+
+def _paged_case(gen, lengths, kv, g, d, bs, dtype):
+    """Pages for `lengths` cached tokens a sequence, dump page last, table
+    entries at and past ceil(len / bs) dump-padded, one spare table column,
+    and +-1e4 in every slot no sequence may read."""
+    b = len(lengths)
+    nb = -(-(max(lengths) + 1) // bs) + 1
+    nbp = b * nb + 1
+    kp, vp = _rand(gen, nbp, kv, bs, d, dtype=dtype), _rand(gen, nbp, kv, bs, d, dtype=dtype)
+    tables = torch.randperm(nbp - 1, generator=gen, device="cuda")[:b * nb].reshape(b, nb).int()
+    seen = torch.zeros(nbp, bs, dtype=torch.bool, device="cuda")
+    for i, n in enumerate(lengths):
+        tables[i, -(-n // bs):] = nbp - 1
+        slots = tables[i].long()[:, None] * bs + torch.arange(bs, device="cuda")
+        seen.view(-1)[slots.view(-1)[:n]] = True
+    kp = kp.masked_fill(~seen[:, None, :, None], 1e4)
+    vp = vp.masked_fill(~seen[:, None, :, None], -1e4)
+    q = _rand(gen, b, 1, kv * g, d, dtype=dtype)
+    kn, vn = _rand(gen, b, 1, kv, d, dtype=dtype), _rand(gen, b, 1, kv, d, dtype=dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return (q, kp, vp, tables, lens, kn, vn, max(lengths) + 1), seen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("keys,b,g,d", DECODE_EDGES)
+def test_paged_decode_at_split_edges(gen, keys, b, g, d, bs, dtype):
+    lengths = [keys, 0, keys // 2, keys - 1][:b]      # B 4 holds a length-0 sequence
+    args, seen = _paged_case(gen, lengths, 2, g, d, bs, dtype)
+    before = pag.DECODE_KERNEL.launches
+    got = ops.paged_decode_attention(*args)
+    assert pag.DECODE_KERNEL.launches == before + 1
+    _close(got, ops.paged_decode_attention(*args, impl="torch"), dtype)
+    assert torch.equal(ops.paged_decode_attention(*args), got)
+    # the poison is never read: other finite values there change nothing
+    q, kp, vp, *rest = args
+    kq = kp.masked_fill(~seen[:, None, :, None], -3.0)
+    vq = vp.masked_fill(~seen[:, None, :, None], 7.0)
+    assert torch.equal(ops.paged_decode_attention(q, kq, vq, *rest), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,kv,keys,d", [(4, 32, 459, 128), (1, 32, 459, 128), (4, 16, 463, 128),
+                                         (4, 32, 466, 80), (16, 32, 300, 128)])
+def test_decodes_at_path_shapes(gen, b, kv, keys, d, dtype):
+    """The engine's and zamba2's shapes: several 64-key tiles a split (the
+    ring wraps), and at B 16 a single split (512 blocks)."""
+    lengths = [keys - 7 * i for i in range(b)]
+    pos = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = _rand(gen, b, 1, kv, d, dtype=dtype)
+    kc, vc = _rand(gen, b, kv, keys + 1, d, dtype=dtype), _rand(gen, b, kv, keys + 1, d, dtype=dtype)
+    got = ops.decode_attention(q, kc, vc, pos)
+    _close(got, ops.decode_attention(q, kc, vc, pos, impl="torch"), dtype)
+    assert torch.equal(ops.decode_attention(q, kc, vc, pos), got)
+    args, _ = _paged_case(gen, lengths, kv, 1, d, 16, dtype)
+    got = ops.paged_decode_attention(*args)
+    _close(got, ops.paged_decode_attention(*args, impl="torch"), dtype)
+    assert torch.equal(ops.paged_decode_attention(*args), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_shared_pages(gen, dtype):
+    """Sequences that adopt a donor's pages (refcount > 1) read them through
+    their own tables; the pool is poisoned everywhere else."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import AttentionConfig
+    from repro_torch.serving.kv_cache import PagedKVPool
+
+    bs, kv, d, share = 16, 4, 128, 48
+    cfg = dataclasses.replace(get_config("llama-7b"), num_layers=1,
+                              attn=AttentionConfig(4 * kv, kv, d))
+    pool = PagedKVPool(cfg, 64, bs, dtype=dtype, device=torch.device("cuda"))
+    pool.k.fill_(1e4)
+    pool.v.fill_(-1e4)
+    lengths = [200, 130, 48, 75]
+    pool.allocate(0, lengths[0])
+    pool.scatter_chunk(0, _rand(gen, 1, kv, lengths[0], d, dtype=dtype),
+                       _rand(gen, 1, kv, lengths[0], d, dtype=dtype), 0)
+    for sid, n in enumerate(lengths[1:], 1):
+        pool.adopt(sid, pool.seq(0).block_table[: share // bs], share)
+        pool.extend(sid, n - share)
+        if n > share:
+            pool.scatter_chunk(sid, _rand(gen, 1, kv, n - share, d, dtype=dtype),
+                               _rand(gen, 1, kv, n - share, d, dtype=dtype), share)
+    assert min(pool.block_refs(x) for x in pool.seq(0).block_table[: share // bs]) == 4
+    max_len = max(lengths) + 1
+    tables = pool.device_tables(list(range(4)), pool.blocks_needed(max_len))
+    q = _rand(gen, 4, 1, 4 * kv, d, dtype=dtype)
+    kn, vn = _rand(gen, 4, 1, kv, d, dtype=dtype), _rand(gen, 4, 1, kv, d, dtype=dtype)
+    args = (q, pool.k[0], pool.v[0], tables,
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"), kn, vn, max_len)
+    got = ops.paged_decode_attention(*args)
+    _close(got, ops.paged_decode_attention(*args, impl="torch"), dtype)
+    assert torch.equal(ops.paged_decode_attention(*args), got)
+
+
+def test_decode_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    q = _rand(gen, 2, 1, 4, 128, dtype=torch.bfloat16)
+    kc = _rand(gen, 2, 4, 40, 128, dtype=torch.bfloat16)
+    pos = torch.tensor([3, 39], dtype=torch.int32, device="cuda")
+    off = torch.empty(kc.numel() + 1, dtype=torch.bfloat16, device="cuda")[1:].view(kc.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        dec.decode_attention_cuda(q, off, kc, pos)
+    with pytest.raises(ValueError, match="dtype"):
+        dec.decode_attention_cuda(q, kc.float(), kc, pos)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        dec.decode_attention_cuda(q.half(), kc.half(), kc.half(), pos)
+    args, _ = _paged_case(gen, [20, 9], 4, 1, 128, 16, torch.bfloat16)
+    q, kp, vp, tables, lens, kn, vn, _ = args
+    offp = torch.empty(kp.numel() + 1, dtype=torch.bfloat16, device="cuda")[1:].view(kp.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        pag.paged_decode_attention_cuda(q, offp, vp, tables, lens, kn, vn)
+    offn = torch.empty(kn.numel() + 1, dtype=torch.bfloat16, device="cuda")[1:].view(kn.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        pag.paged_decode_attention_cuda(q, kp, vp, tables, lens, offn, vn)
+    with pytest.raises(ValueError, match="dtype"):
+        pag.paged_decode_attention_cuda(q, kp, vp, tables, lens.long(), kn, vn)
+    with pytest.raises(ValueError, match="dtype"):
+        pag.paged_decode_attention_cuda(q, kp.float(), vp, tables, lens, kn, vn)
+    with pytest.raises(ValueError, match="power of two"):
+        pag.paged_decode_attention_cuda(q, kp[:, :, :12].contiguous(), vp[:, :, :12].contiguous(),
+                                        tables, lens, kn, vn)
+
+
 # the edges of the tensor-core route's tiles: chunks of 1, 16, 17 and 65
 # tokens over contexts at and around 1, 16 and 64 (a 64-key tile that
 # straddles the ctx/chunk boundary and a ragged last page), pages of 8 and
