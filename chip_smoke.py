@@ -13,10 +13,13 @@ no result:
   build    nvcc builds every kernel from src/repro_torch/csrc (one process
            per source, all at once) and prints each kernel's registers and
            spills (-Xptxas=-v); the tensor-core kernels must not spill at
-           head_dim 128, the SASS of the two prefill kernels must hold HMMA
-           (tensor-core) and LDGSTS (cp.async) instructions, that of the two
-           decode kernels LDGSTS, and the decodes' path instantiations (bf16,
-           one query row a kv head, head_dim 128 and 80) must not spill.
+           head_dim 128, the SASS of the two prefill kernels and of the two
+           recurrences must hold HMMA (tensor-core) and LDGSTS (cp.async)
+           instructions, that of the two decode kernels LDGSTS, the decodes'
+           path instantiations (bf16, one query row a kv head, head_dim 128
+           and 80) must not spill, and no instantiation of the two
+           recurrences may (their path ones, bf16 at N 64 and N = P = 64,
+           among them).
   kernels  each hand-written kernel against its plain PyTorch version
            (impl="torch") on the card, and against the fp32 oracle of
            kernels/ref.py, at the target's and the draft's engine shapes and
@@ -32,11 +35,16 @@ no result:
            keys in {1, 63, 64, 65, 127, 128, 129, 459}, one and four
            sequences, a paged length 0); the WKV
            and SSD recurrences at the recurrent phase's prefill and extend
-           shapes from a nonzero state, and at small ones (T in {1, 16, 17,
-           40}, H in {1, 3}). Two calls of each kernel at its timed shape
-           must be bit-identical. Then kernel, plain version and one PyTorch
-           library call (the yardstick; the port never calls it) are timed
-           at the shapes the path runs, the decodes also at the serialized
+           shapes from a nonzero state, at small ones (T in {1, 16, 17,
+           40}, H in {1, 3}) and at the edges of their chunks (WKV T in {15,
+           16, 17, 33}, SSD T in {63, 64, 65, 129}; bf16 and fp32, state0 on
+           and off; SSD at N = P = 128, whose bf16 chunk is 32 tokens, T in
+           {31, 32, 33, 65} in bf16). Two calls of each kernel at its timed shape (and of the
+           recurrences' fp32 route at the path shape) must be bit-identical.
+           Then kernel, plain version and one PyTorch library call (the
+           yardstick; the port never calls it) are timed at the shapes the
+           path runs, the recurrences also on their fp32 route and SSD at
+           chunks of 32, 64 and 128 tokens, the decodes also at the serialized
            shapes (one sequence over 459 cached tokens, target and draft),
            with the decodes' split of the keys printed for each; the paged
            kernels, which no one PyTorch call computes off a paged pool, get
@@ -103,11 +111,13 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 #         unnormalised probabilities to bf16 before P V, dividing by the
 #         fp32 sum at the end (largest readings: flash and paged prefill
 #         6.3e-2, the decodes 2.7e-2)
-#   the recurrences (WKV, SSD) compute in fp32 from the same inputs in
-#   kernel (per token) and plain version (chunked): y and the final state
-#   differ by summation order over the T steps in either input type
-#   (largest readings: WKV 3.1e-5 fp32 and 4.7e-5 bf16 inputs, SSD 3.7e-5
-#   and 4.7e-5)
+#   the recurrences (WKV, SSD) compute to fp32 accuracy from the same
+#   inputs in kernel and plain version (chunked): fp32 inputs take the
+#   kernel's per-token route, bf16 inputs its chunked tensor-core route with
+#   error-compensated bf16 operands (fp32 operands split into three bf16
+#   terms); y and the final state differ by summation order over the T steps
+#   (largest readings before the chunked route: WKV 3.1e-5 fp32 and 4.7e-5
+#   bf16 inputs, SSD 3.7e-5 and 4.7e-5; PERF.md has the current ones)
 TOL_PLAIN = {"float32": {"flash_attention": 2e-5, "decode_attention": 2e-5,
                          "paged_decode_attention": 2e-5,
                          "paged_prefill_attention": 2e-5,
@@ -121,7 +131,8 @@ TOL_PLAIN = {"float32": {"flash_attention": 2e-5, "decode_attention": 2e-5,
 #   flash 1.3e-2, paged prefill 2.2e-2, the decodes 1.3e-3; half an ulp of
 #   an element ~3x its row's RMS is 5.9e-3); the
 #   recurrences write fp32, so only the order of their sums differs (largest
-#   readings from bf16 inputs: WKV 1.9e-5, SSD 3.2e-5)
+#   readings from bf16 inputs before the chunked route: WKV 1.9e-5, SSD
+#   3.2e-5)
 TOL_ORACLE_BF16 = {"flash_attention": 4e-2, "decode_attention": 1e-2,
                    "paged_decode_attention": 1e-2, "paged_prefill_attention": 6e-2,
                    "rwkv6_wkv": 6e-5, "mamba2_ssd": 1e-4}
@@ -202,20 +213,29 @@ DECODE_PATH = {"decode_attention": ("decode_kernel<bf16,128,1>", "decode_kernel<
                "paged_decode_attention": ("paged_decode_kernel<bf16,128,1>",
                                           "paged_decode_kernel<bf16,80,1>")}
 NO_SPILL = "0 bytes spill stores, 0 bytes spill loads"
+# the recurrences' instantiations on the recurrent paths: bf16, the chunked
+# tensor-core form at rwkv6-7b's N 64 and zamba2's N 64, P 64 (chunk 64)
+REC_PATH = {"rwkv6_wkv": ("wkv_mma_kernel<64>",),
+            "mamba2_ssd": ("ssd_mma_kernel<64,64,64>",)}
+# the chunks the SSD kernel's chunked form was timed at (mamba2_ssd_launch_chunk)
+SSD_CHUNKS = (32, 64, 128)
 
 
 def phase_sass(logs):
-    """The bf16 routes of the prefill kernels must run on the tensor cores
-    (HMMA), and all four attention kernels must load K/V asynchronously
-    (LDGSTS, the SASS of cp.async); the decodes' path instantiations must
-    not spill."""
+    """The bf16 routes of the prefill kernels and of the two recurrences
+    must run on the tensor cores (HMMA), and all six kernels must load
+    asynchronously (LDGSTS, the SASS of cp.async); the decodes' path
+    instantiations must not spill, and no instantiation of either
+    recurrence may spill (their path ones must be among them)."""
     from repro_torch.kernels import build
 
     cuobjdump = pathlib.Path(build._nvcc()).with_name("cuobjdump")
     for src, need in (("flash_attention", ("HMMA", "LDGSTS")),
                       ("paged_prefill_attention", ("HMMA", "LDGSTS")),
                       ("decode_attention", ("LDGSTS",)),
-                      ("paged_decode_attention", ("LDGSTS",))):
+                      ("paged_decode_attention", ("LDGSTS",)),
+                      ("rwkv6_wkv", ("HMMA", "LDGSTS")),
+                      ("mamba2_ssd", ("HMMA", "LDGSTS"))):
         sass = subprocess.run([str(cuobjdump), "-sass", str(build._lib_path(src))],
                               capture_output=True, text=True, check=True, timeout=120).stdout
         counts = {op: sum(f" {op}." in ln or f" {op} " in ln for ln in sass.splitlines())
@@ -233,6 +253,18 @@ def phase_sass(logs):
                 raise RuntimeError(f"{src} {inst} spills or is missing: {spills.get(inst)}")
         print(f"ptxas {src}: the path instantiations {', '.join(insts)} do not spill",
               flush=True)
+    for src, insts in REC_PATH.items():
+        if src not in logs:
+            print(f"ptxas {src}: built before this run, spills were checked then", flush=True)
+            continue
+        spills = {k: sp for k, _, sp in _ptxas_kernels(logs[src])}
+        missing = [i for i in insts if i not in spills]
+        spilling = {k: sp for k, sp in spills.items() if sp != NO_SPILL}
+        if missing or spilling:
+            raise RuntimeError(f"{src}: path instantiations missing {missing}, "
+                               f"instantiations that spill {spilling}")
+        print(f"ptxas {src}: none of its {len(spills)} instantiations spills (the path's: "
+              f"{', '.join(insts)})", flush=True)
 
 
 def _ptxas_kernels(log_text: str):
@@ -348,6 +380,10 @@ class KernelCheck:
                        yardstick_ratio=_ratio(t["ms"], t["yardstick_ms"]))
         if "splits" in t:
             rec["splits"] = t["splits"]
+        if "fp32_ms" in t:
+            rec["fp32_ms"] = t["fp32_ms"]
+        if t.get("chunks"):
+            rec["chunk_ms"] = {str(k): v for k, v in t["chunks"].items()}
         if self.timing_d80:
             d80 = dict(self.timing_d80)
             d80["library_ratio"] = _ratio(d80["ms"], d80["library_ms"])
@@ -735,32 +771,39 @@ def phase_kernels(gen):
         4 * d * h * (cc * ctx + cc * (cc + 1) / 2))
     # ---- the recurrences: (B, T, H, N) / (B, T, H, P, N), dtype, state0;
     # the recurrent phase's prefill and extend shapes, then small ones
-    # (T = 1, odd T, one and three heads, state0 zero)
-    def wkv_inputs(b, t, h, n, dt, state):
-        r, k, v = ((rand(b, t, h, n) * 0.5).to(dt) for _ in range(3))
-        logw = (-torch.exp(rand(b, t, h, n) * 0.5)).clamp(-8.0, -1e-4)
-        s0 = rand(b, h, n, n) * 0.1 if state else None
-        return r, k, v, logw, rand(h, n) * 0.1, s0
+    # (T = 1, odd T, one and three heads, state0 zero), then (from the
+    # second generator) the edges of the chunked form's chunks: WKV's 16
+    # tokens, SSD's KERNEL_CHUNK (half that at N = P = 128)
+    def wkv_inputs(b, t, h, n, dt, state, src=gen):
+        r, k, v = ((rand(b, t, h, n, g=src) * 0.5).to(dt) for _ in range(3))
+        logw = (-torch.exp(rand(b, t, h, n, g=src) * 0.5)).clamp(-8.0, -1e-4)
+        s0 = rand(b, h, n, n, g=src) * 0.1 if state else None
+        return r, k, v, logw, rand(h, n, g=src) * 0.1, s0
 
-    def ssd_inputs(b, t, h, p, n, dt, state):
-        x = (rand(b, t, h, p) * 0.5).to(dt)
-        bm, cm = ((rand(b, t, n) * 0.5).to(dt) for _ in range(2))
-        dtv = F.softplus(rand(b, t, h))
+    def ssd_inputs(b, t, h, p, n, dt, state, src=gen):
+        x = (rand(b, t, h, p, g=src) * 0.5).to(dt)
+        bm, cm = ((rand(b, t, n, g=src) * 0.5).to(dt) for _ in range(2))
+        dtv = F.softplus(rand(b, t, h, g=src))
         a_log = torch.log(torch.linspace(1.0, 8.0, h, device=cuda))
-        s0 = rand(b, h, n, p) * 0.1 if state else None
+        s0 = rand(b, h, n, p, g=src) * 0.1 if state else None
         return x, bm, cm, dtv, a_log, s0
 
     rwkv, zssm = get_config("rwkv6-7b"), zam.ssm
     hw, nw = rwkv.d_model // rwkv.rwkv.head_dim, rwkv.rwkv.head_dim
     hs = zssm.expand * zam.d_model // zssm.head_dim
     ps, ns = zssm.head_dim, zssm.state_dim
+    edges = list(itertools.product((f32, bf16), (True, False)))
     c = checks["rwkv6_wkv"]
-    for b, t, h, n, dt, state in [
-            (REC_BATCH, s_rec, hw, nw, bf16, True), (REC_BATCH, s_rec, hw, nw, f32, True),
-            (REC_BATCH, EXTEND, hw, nw, bf16, True), (REC_BATCH, EXTEND, hw, nw, f32, True),
-            (1, 1, 1, 64, bf16, True), (2, 16, 3, 64, f32, True), (1, 17, 3, 32, bf16, False),
-            (2, 40, 1, 64, f32, True), (3, 17, 1, 16, f32, True)]:
-        r, k, v, logw, u, s0 = args = wkv_inputs(b, t, h, n, dt, state)
+    for b, t, h, n, dt, state, src in [
+            (REC_BATCH, s_rec, hw, nw, bf16, True, gen), (REC_BATCH, s_rec, hw, nw, f32, True, gen),
+            (REC_BATCH, EXTEND, hw, nw, bf16, True, gen), (REC_BATCH, EXTEND, hw, nw, f32, True, gen),
+            (1, 1, 1, 64, bf16, True, gen), (2, 16, 3, 64, f32, True, gen),
+            (1, 17, 3, 32, bf16, False, gen), (2, 40, 1, 64, f32, True, gen),
+            (3, 17, 1, 16, f32, True, gen)] + [
+            (2, t, 2, nw, dt, state, more) for t in (wkv.CHUNK - 1, wkv.CHUNK, wkv.CHUNK + 1,
+                                                     2 * wkv.CHUNK + 1)
+            for dt, state in edges]:
+        r, k, v, logw, u, s0 = args = wkv_inputs(b, t, h, n, dt, state, src)
         got = ops.rwkv6_wkv(*args)
         plain = ops.rwkv6_wkv(*args, impl="torch")
         zero = torch.zeros(b, h, n, n, device=cuda)
@@ -771,21 +814,33 @@ def phase_kernels(gen):
         c.hold(got[1], plain[1], os_, dt, what + " state")
     args = wkv_inputs(REC_BATCH, s_rec, hw, nw, bf16, True)
     c.identical(lambda: ops.rwkv6_wkv(*args), "(timed)")
+    args32 = wkv_inputs(REC_BATCH, s_rec, hw, nw, f32, True, more)
+    c.identical(lambda: ops.rwkv6_wkv(*args32), "(fp32 route, path shape)")
     c.timing = {"ms": _time_ms(lambda: ops.rwkv6_wkv(*args)),
                 "plain_ms": _time_ms(lambda: ops.rwkv6_wkv(*args, impl="torch")),
-                "library_ms": None}
+                "library_ms": None,
+                "fp32_ms": _time_ms(lambda: ops.rwkv6_wkv(*args32))}
     elems = REC_BATCH * s_rec * hw * nw
     c.timing["bound_ms"], c.timing["bound_by"] = _bound(
         3 * elems * es + elems * 4 + hw * nw * 4 + elems * 4 + 2 * REC_BATCH * hw * nw * nw * 4,
         4 * elems * nw)
     c = checks["mamba2_ssd"]
-    for b, t, h, p, n, dt, state in [
-            (REC_BATCH, s_rec, hs, ps, ns, bf16, True), (REC_BATCH, s_rec, hs, ps, ns, f32, True),
-            (REC_BATCH, EXTEND, hs, ps, ns, bf16, True), (REC_BATCH, EXTEND, hs, ps, ns, f32, True),
-            (1, 1, 1, 64, 64, bf16, True), (2, 16, 3, 64, 16, f32, True),
-            (1, 17, 3, 32, 64, bf16, False), (2, 40, 1, 64, 64, f32, True),
-            (3, 17, 1, 16, 128, f32, True)]:
-        x, bm, cm, dtv, a_log, s0 = args = ssd_inputs(b, t, h, p, n, dt, state)
+    lc = getattr(ssd, "KERNEL_CHUNK", 64)    # a parent tree's kernel has no chunk
+    for b, t, h, p, n, dt, state, src in [
+            (REC_BATCH, s_rec, hs, ps, ns, bf16, True, gen),
+            (REC_BATCH, s_rec, hs, ps, ns, f32, True, gen),
+            (REC_BATCH, EXTEND, hs, ps, ns, bf16, True, gen),
+            (REC_BATCH, EXTEND, hs, ps, ns, f32, True, gen),
+            (1, 1, 1, 64, 64, bf16, True, gen), (2, 16, 3, 64, 16, f32, True, gen),
+            (1, 17, 3, 32, 64, bf16, False, gen), (2, 40, 1, 64, 64, f32, True, gen),
+            (3, 17, 1, 16, 128, f32, True, gen)] + [
+            (2, t, 2, ps, ns, dt, state, more) for t in (lc - 1, lc, lc + 1, 2 * lc + 1)
+            for dt, state in edges] + [
+            # N = P = 128: the bf16 route's chunk is half as long there
+            (2, t, 2, 128, 128, bf16, state, more) for t in (lc // 2 - 1, lc // 2, lc // 2 + 1,
+                                                          lc + 1)
+            for state in (True, False)]:
+        x, bm, cm, dtv, a_log, s0 = args = ssd_inputs(b, t, h, p, n, dt, state, src)
         got = ops.mamba2_ssd(*args)
         plain = ops.mamba2_ssd(*args, impl="torch")
         zero = torch.zeros(b, h, n, p, device=cuda)
@@ -796,9 +851,13 @@ def phase_kernels(gen):
         c.hold(got[1], plain[1], os_, dt, what + " state")
     args = ssd_inputs(REC_BATCH, s_rec, hs, ps, ns, bf16, True)
     c.identical(lambda: ops.mamba2_ssd(*args), "(timed)")
+    args32 = ssd_inputs(REC_BATCH, s_rec, hs, ps, ns, f32, True, more)
+    c.identical(lambda: ops.mamba2_ssd(*args32), "(fp32 route, path shape)")
     c.timing = {"ms": _time_ms(lambda: ops.mamba2_ssd(*args)),
                 "plain_ms": _time_ms(lambda: ops.mamba2_ssd(*args, impl="torch")),
-                "library_ms": None}
+                "library_ms": None,
+                "fp32_ms": _time_ms(lambda: ops.mamba2_ssd(*args32)),
+                "chunks": _ssd_chunk_times(ssd, args)}
     elems, toks = REC_BATCH * s_rec * hs * ps, REC_BATCH * s_rec
     c.timing["bound_ms"], c.timing["bound_by"] = _bound(
         elems * es + 2 * toks * ns * es + toks * hs * 4 + hs * 4 + elems * 4
@@ -826,6 +885,44 @@ def phase_kernels(gen):
     return checks
 
 
+def _ssd_chunk_times(ssd, args) -> dict:
+    """The SSD kernel's chunked form at each of SSD_CHUNKS tokens a chunk
+    (zamba2's N = P = 64 only), through mamba2_ssd_launch_chunk: {chunk:
+    device ms}, or {} where this tree's library has no such symbol."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import build
+
+    lib = ctypes.CDLL(str(build._lib_path("mamba2_ssd")))
+    if not hasattr(lib, "mamba2_ssd_launch_chunk"):
+        return {}
+    fn = lib.mamba2_ssd_launch_chunk
+    fn.argtypes, fn.restype = ssd.KERNEL.argtypes, ctypes.c_int
+    x, bm, cm, dtv, a_log, s0 = args
+    b, t, h, p = x.shape
+    y = torch.empty(b, t, h, p, device=x.device)
+    state = torch.empty(b, h, bm.shape[-1], p, device=x.device)
+    stream = build.stream_ptr(x)
+    out = {}
+    for chunk in SSD_CHUNKS:
+        call = (x.data_ptr(), bm.data_ptr(), cm.data_ptr(), dtv.data_ptr(), a_log.data_ptr(),
+                s0.data_ptr(), y.data_ptr(), state.data_ptr(), b, t, h, bm.shape[-1], p, chunk,
+                stream)
+        if fn(*call) != 0:
+            raise RuntimeError(f"mamba2_ssd_launch_chunk refused chunk {chunk}")
+        want = ssd.mamba2_ssd(*args)
+        torch.cuda.synchronize()
+        for got, ref_ in zip((y, state), want):     # every chunk computes the same function
+            _, rel = _rel(got, ref_)
+            if rel > TOL_PLAIN["bfloat16"]["mamba2_ssd"]:
+                raise RuntimeError(f"mamba2_ssd at chunk {chunk} disagrees with the "
+                                   f"wrapper's: {rel:.3e}")
+        out[chunk] = _time_ms(lambda: fn(*call))
+    return out
+
+
 def _timing_line(t) -> str:
     lib = (f"library {t['library_ms']:.4f} (kernel/library "
            f"{_ratio(t['ms'], t['library_ms']):.2f})" if t["library_ms"] else "library None")
@@ -838,6 +935,10 @@ def _timing_line(t) -> str:
                  else "; keys not split (this tree's kernel)")
     for target, (n, chunk, ms) in t.get("per_sm", {}).items():
         split += f"; aimed at {target} blocks an SM: {n} splits of {chunk} keys {ms:.4f}"
+    if "fp32_ms" in t:
+        split += f"; the fp32 route (per token) {t['fp32_ms']:.4f}"
+    for chunk, ms in t.get("chunks", {}).items():
+        split += f"; chunk {chunk}: {ms:.4f}"
     return (f"kernel {t['ms']:.4f}, plain {t['plain_ms']:.4f}, {lib}, bound "
             f"{t['bound_ms']:.4f} ({t['bound_by']}, kernel/bound {t['ms'] / t['bound_ms']:.2f})"
             f"{split}")
@@ -1174,12 +1275,15 @@ def phase_recurrent(checks, card):
 
 def _print_port_kernels(on_card) -> None:
     """The profile's rows of the port's own kernels (the `*_kernel`
-    functions of csrc/, each in its source's anonymous namespace): device
-    ms, launches, ms a launch."""
+    functions of the imported package's csrc/, each in its source's
+    anonymous namespace): device ms, launches, ms a launch."""
     import re
 
-    csrc = ROOT / "src" / "repro_torch" / "csrc"
-    names = {n for f in csrc.glob("*.cu") for n in re.findall(r"(\w+_kernel)\(", f.read_text())}
+    from repro_torch.kernels import build
+
+    # the sources of the package this run imported (a --tree run's own)
+    names = {n for f in build.CSRC.glob("*.cu")
+             for n in re.findall(r"(\w+_kernel)\(", f.read_text())}
     for e in sorted(on_card, key=lambda e: -e.device_time_total):
         if not e.key.startswith("void (anonymous namespace)::"):
             continue

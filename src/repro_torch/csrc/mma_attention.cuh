@@ -31,6 +31,10 @@
 // Every row that the block stores must see at least one key of the first
 // tile (both callers' rows see key 0), so its running max is a real score
 // before any masked score is exponentiated.
+//
+// The fragment helpers (ldmatrix, mma_bf16) and the error-compensated
+// split of fp32 operands into bf16 terms (split_pack, mma_split) also serve
+// the recurrences' chunked forms (rwkv6_wkv.cu, mamba2_ssd.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -90,6 +94,48 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Error-compensated bf16 operands, for the recurrences' fp32 products on the
+// tensor cores: an fp32 pair (x0, x1) becomes K bf16 pairs whose sum is the
+// pair to ~2^(-8K) of its size (term k rounds what terms < k left over; each
+// subtraction is exact in fp32). A product of a K-term operand with a J-term
+// one takes the terms (ka, kb) with ka + kb < max(K, J): the dropped ones are
+// below the representation error. A raw bf16 input is one exact term.
+template <int K>
+__device__ __forceinline__ void split_pack(float x0, float x1, uint32_t (&out)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(x0, x1);
+    out[k] = *reinterpret_cast<const uint32_t*>(&p);
+    x0 -= __low2float(p);
+    x1 -= __high2float(p);
+  }
+}
+
+// The same split stored in K planes of shared memory, plane k at dst + k * plane.
+template <int K>
+__device__ __forceinline__ void split_store(float x0, float x1, bf16* dst, int plane) {
+  uint32_t w[K];
+  split_pack<K>(x0, x1, w);
+#pragma unroll
+  for (int k = 0; k < K; ++k) *reinterpret_cast<uint32_t*>(dst + k * plane) = w[k];
+}
+
+// c (16 x 8) += the kept terms of a[ka] * b[kb], smallest first; b[kb] holds
+// the B fragments of two n-tiles (an ldmatrix.x4), of which n-tile nt is used.
+template <int KA, int KB>
+__device__ __forceinline__ void mma_split(float (&c)[4], const uint32_t (&a)[KA][4],
+                                          const uint32_t (&b)[KB][4], int nt) {
+  constexpr int K = KA > KB ? KA : KB;
+#pragma unroll
+  for (int o = K - 1; o >= 0; --o) {
+#pragma unroll
+    for (int ka = 0; ka < KA; ++ka) {
+      const int kb = o - ka;
+      if (kb >= 0 && kb < KB) mma_bf16(c, a[ka], b[kb][2 * nt], b[kb][2 * nt + 1]);
+    }
+  }
 }
 
 __device__ __forceinline__ float quad_max(float v) {

@@ -146,10 +146,11 @@ def check(name: str, t, shape: tuple, dtype, device) -> None:
 
 
 def check_aligned(name: str, t) -> None:
-    """The attention kernels copy rows in 16-byte pieces (cp.async): the
-    prefill kernels' bf16 route and both decodes in either type."""
+    """The kernels copy rows in 16-byte pieces (cp.async): the prefill
+    kernels' and the recurrences' bf16 routes and both decodes in either
+    type."""
     if t.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary for the attention kernels")
+        raise ValueError(f"{name} must start on a 16-byte boundary for the CUDA kernels")
 
 
 def check_float(name: str, t) -> None:

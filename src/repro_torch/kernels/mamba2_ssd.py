@@ -10,7 +10,14 @@ state S and B, C shared by the heads,
 
 in the model's layouts (x (B, T, H, P), B/C (B, T, N), dt (B, T, H)), for
 any T, from `state0` (zeros if None); it returns y and the final state, both
-fp32.
+fp32. bf16 inputs take the kernel's chunked form on the tensor cores
+(KERNEL_CHUNK tokens a chunk, half that at N = P = 128, where the tiles of
+KERNEL_CHUNK tokens do not fit a block's shared memory; products kept at
+fp32 accuracy by splitting each fp32 operand into three bf16 terms); fp32
+inputs take its per-token form on the CUDA cores. The chunked form copies
+xh, B and C in 16-byte pieces, so it refuses a tensor that does not start
+on a 16-byte boundary; and it needs la >= -1, which the clamp inside the
+kernel guarantees.
 
 `ssd_chunked_math` is the reference's chunked form (src/repro/models/
 mamba2.py `ssd_chunked`) op for op: its intra-chunk tensors stay in the
@@ -27,6 +34,7 @@ from repro_torch.kernels import build
 
 DECAY_CLAMP = 1.0
 CHUNK = 128  # fp32-safe with la >= -1 (exponents <= 1 * 128 / 2 = 64)
+KERNEL_CHUNK = 64  # the CUDA kernel's chunk (csrc/mamba2_ssd.cu CHUNK)
 
 KERNEL = build.CudaKernel(
     "mamba2_ssd", "mamba2_ssd_launch", [build.PTR] * 8 + [build.INT] * 6 + [build.PTR])
@@ -57,6 +65,9 @@ def mamba2_ssd_cuda(xh, b_in, c_in, dt, a_log, state0=None):
     build.check("a_log", a_log, (h,), torch.float32, xh.device)
     if state0 is not None:
         build.check("state0", state0, (b, h, n, p), torch.float32, xh.device)
+    if xh.dtype == torch.bfloat16:
+        for name, a in (("xh", xh), ("b_in", b_in), ("c_in", c_in)):
+            build.check_aligned(name, a)
     y = torch.empty((b, t, h, p), dtype=torch.float32, device=xh.device)
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=xh.device)
     KERNEL.launch(xh.data_ptr(), b_in.data_ptr(), c_in.data_ptr(), dt.data_ptr(),

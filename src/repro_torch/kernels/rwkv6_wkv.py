@@ -8,7 +8,14 @@ per (sequence, head), with an N x N fp32 state S,
     y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T),   S_t = diag(e^{logw_t}) S_{t-1} + k_t v_t^T,
 
 in the model's (B, T, H, N) layout, for any T, from `state0` (zeros if None);
-it returns y and the final state, both fp32.
+it returns y and the final state, both fp32. bf16 inputs take the kernel's
+chunked form on the tensor cores (CHUNK tokens a chunk, products kept at
+fp32 accuracy by splitting each fp32 operand into bf16 terms); fp32 inputs
+take its per-token form on the CUDA cores. The chunked form copies r, k, v
+and logw in 16-byte pieces, so it refuses a tensor that does not start on a
+16-byte boundary; and it needs logw >= -8 (the model's clamp,
+models/rwkv6.py `_decay`) so that its exponents stay fp32-safe, which the
+kernel does not check.
 
 `wkv_chunked_plain` is the plain version: the reference's chunked form
 (src/repro/models/rwkv6.py `wkv_chunked`), fp32 throughout, op for op. The
@@ -48,6 +55,9 @@ def rwkv6_wkv_cuda(r, k, v, logw, u, state0=None):
     build.check("u", u, (h, n), torch.float32, r.device)
     if state0 is not None:
         build.check("state0", state0, (b, h, n, n), torch.float32, r.device)
+    if r.dtype == torch.bfloat16:
+        for name, a in (("r", r), ("k", k), ("v", v), ("logw", logw)):
+            build.check_aligned(name, a)
     y = torch.empty((b, t, h, n), dtype=torch.float32, device=r.device)
     state = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
     KERNEL.launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),

@@ -27,9 +27,10 @@ pytestmark = pytest.mark.cuda
 # max|kernel - plain| / max|plain|: fp32 differs in summation order only;
 # bf16 plain versions round scores and probabilities to bf16
 TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
-# the recurrences: kernel (per token) and plain version (chunked) both work
-# in fp32 on the same inputs, so they differ in summation order only, over
-# T dependent steps
+# the recurrences: kernel (per token for fp32 inputs, chunked on the tensor
+# cores with error-compensated bf16 operands for bf16 ones) and plain
+# version (chunked) both work to fp32 accuracy on the same inputs, so they
+# differ in summation order only, over T dependent steps
 TOL_REC = 1e-3
 
 
@@ -312,10 +313,20 @@ def _close_rec(got, want):
         assert err < TOL_REC, float(err)
 
 
+# the chunked (bf16) route's edges: WKV's chunk of 16 tokens, SSD's of 64
+# (32 at N = P = 128, where the tiles of 64 tokens exceed a block's shared
+# memory); state0 on and off
+WKV_CHUNK_EDGES = [(2, t, 2, 64, state) for t in (15, 16, 17, 33) for state in (True, False)]
+SSD_CHUNK_EDGES = [(2, t, 2, 64, 64, state) for t in (63, 64, 65, 129)
+                   for state in (True, False)] + [
+                  (2, t, 2, 128, 128, state) for t in (31, 32, 33, 65) for state in (True, False)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,h,n,state", [(2, 1, 3, 64, True), (1, 17, 1, 64, True),
                                            (2, 40, 3, 32, False), (4, 451, 4, 64, True),
-                                           (1, 16, 2, 16, True), (1, 33, 1, 128, True)])
+                                           (1, 16, 2, 16, True), (1, 33, 1, 128, True)]
+                         + WKV_CHUNK_EDGES)
 def test_wkv_kernel_matches_plain(gen, b, t, h, n, state, dtype):
     args = _wkv_inputs(gen, b, t, h, n, dtype, state)
     before = wkv.KERNEL.launches
@@ -327,12 +338,42 @@ def test_wkv_kernel_matches_plain(gen, b, t, h, n, state, dtype):
 @pytest.mark.parametrize("b,t,h,p,n,state", [(2, 1, 3, 64, 64, True), (1, 17, 1, 64, 64, True),
                                              (2, 40, 3, 32, 16, False),
                                              (4, 451, 4, 64, 64, True),
-                                             (1, 16, 2, 16, 128, True)])
+                                             (1, 16, 2, 16, 128, True)] + SSD_CHUNK_EDGES)
 def test_ssd_kernel_matches_plain(gen, b, t, h, p, n, state, dtype):
     args = _ssd_inputs(gen, b, t, h, p, n, dtype, state)
     before = ssd.KERNEL.launches
     _close_rec(ops.mamba2_ssd(*args), ops.mamba2_ssd(*args, impl="torch"))
     assert ssd.KERNEL.launches == before + 1
+
+
+# one call over T1 + T2 tokens against a call over T1 whose final state
+# feeds a call over T2: the split falls inside a chunk, on its edge, and
+# past one (both forms: bf16 chunked, fp32 per token)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t1,t2", [(7, 30), (16, 17), (64, 65), (100, 3)])
+def test_recurrences_carry_their_state(gen, t1, t2, dtype):
+    r, k, v, logw, u, s0 = _wkv_inputs(gen, 2, t1 + t2, 3, 64, dtype)
+    y, s = ops.rwkv6_wkv(r, k, v, logw, u, s0)
+    y1, s1 = ops.rwkv6_wkv(*(a[:, :t1].contiguous() for a in (r, k, v, logw)), u, s0)
+    y2, s2 = ops.rwkv6_wkv(*(a[:, t1:].contiguous() for a in (r, k, v, logw)), u, s1)
+    _close_rec((torch.cat([y1, y2], 1), s2), (y, s))
+    x, bm, cm, dt, a_log, s0 = _ssd_inputs(gen, 2, t1 + t2, 3, 64, 64, dtype)
+    y, s = ops.mamba2_ssd(x, bm, cm, dt, a_log, s0)
+    first = (a[:, :t1].contiguous() for a in (x, bm, cm, dt))
+    y1, s1 = ops.mamba2_ssd(*first, a_log, s0)
+    second = (a[:, t1:].contiguous() for a in (x, bm, cm, dt))
+    y2, s2 = ops.mamba2_ssd(*second, a_log, s1)
+    _close_rec((torch.cat([y1, y2], 1), s2), (y, s))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 17, 130])
+def test_recurrences_repeat_bit_identically(gen, t, dtype):
+    wargs = _wkv_inputs(gen, 2, t, 3, 64, dtype)
+    sargs = _ssd_inputs(gen, 2, t, 3, 64, 64, dtype)
+    for fn, args in ((ops.rwkv6_wkv, wargs), (ops.mamba2_ssd, sargs)):
+        first, again = fn(*args), fn(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_recurrence_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -356,6 +397,21 @@ def test_recurrence_wrappers_refuse_what_the_kernels_do_not_take(gen):
         ssd.mamba2_ssd_cuda(x, bm, cm, dt[:, :4].contiguous(), a_log, s0)
     with pytest.raises(ValueError, match="head channels"):
         ssd.mamba2_ssd_cuda(x[..., :48].contiguous(), bm, cm, dt, a_log)
+    # the bf16 routes copy rows in 16-byte pieces: a view one element off a
+    # 16-byte boundary is refused, not read misaligned
+    def off(a):
+        return torch.empty(a.numel() + 1, dtype=a.dtype, device="cuda")[1:].view(a.shape)
+
+    for i, name in enumerate(("r", "k", "v", "logw")):
+        args = [r, k, v, logw]
+        args[i] = off(args[i])
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte"):
+            wkv.rwkv6_wkv_cuda(*args, u)
+    for i, name in enumerate(("xh", "b_in", "c_in")):
+        args = [x, bm, cm]
+        args[i] = off(args[i])
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte"):
+            ssd.mamba2_ssd_cuda(*args, dt, a_log, s0)
 
 
 def test_recurrent_plain_paths_refuse_the_card(gen):
