@@ -12,8 +12,11 @@ no result:
            from nvidia-smi.
   build    nvcc builds every kernel from src/repro_torch/csrc (one process
            per source, all at once) and prints each kernel's registers and
-           spills (-Xptxas=-v); the tensor-core kernels must not spill at
-           head_dim 128, the SASS of the two prefill kernels and of the two
+           spills (-Xptxas=-v), read from the ptxas log saved beside each
+           library, whether built now or cached (a cached library without
+           its log fails the phase: delete it and rebuild); the tensor-core
+           kernels must not spill at head_dim 128, the SASS of the two
+           prefill kernels and of the two
            recurrences must hold HMMA (tensor-core) and LDGSTS (cp.async)
            instructions, that of the two decode kernels LDGSTS, the decodes'
            path instantiations (bf16, one query row a kv head, head_dim 128
@@ -70,6 +73,21 @@ no result:
            prefill/extend, flash 9 per zamba2 prefill, decode 9 per zamba2
            step). First-token logits of the kernel path are held against
            the plain path (impl="torch") on the card.
+  planning the paper's planning stack on the host (numpy, no JAX): the
+           main() of examples/torch_{serve_disaggregated, carbon_planner,
+           fleet_allocate, autoscale}.py at the reference examples' scale
+           (9 configs over llama-7b with llama-1b / llama-300m drafts, a100
+           new, t4 / v100 old; 12 workloads, 60 s windows, 70% profiled; the
+           fleet allocation and the diurnal autoscale), printed with each
+           one's host seconds; Algorithm 1's contract on the scheduler's
+           decisions over the matrices completed by collaborative filtering
+           (every workload decided; a feasible decision meets the SLO
+           target at the least carbon among the feasible configs, an
+           infeasible one has the best SLO attainment; the example printed
+           that table); and one VectorFleetSim drain in scale mode, 1000
+           replicas x 100k sharegpt requests, which must finish every
+           request with exactly its output tokens. Under --tree, a tree
+           without the planning stack prints "planning: not in this tree".
 After all path phases every kernel must have launched on a path.
 
 The engine's modelled clock, energy and carbon are the cost model's figures
@@ -82,6 +100,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import importlib.util
 import itertools
 import json
 import pathlib
@@ -191,14 +210,21 @@ def phase_device():
 
 # ------------------------------------------------------------------ build
 def phase_build():
-    """Build every kernel; returns {source: ptxas log} for those built now."""
+    """Build every kernel; returns {source: ptxas log} for every library,
+    built now or cached: a cached library's log is the one saved beside it
+    when it was built, and a cached library without one fails the phase."""
     from repro_torch.kernels import build
 
     t = time.perf_counter()
-    logs = build.build_all()
+    built = build.build_all()
     secs = time.perf_counter() - t
-    print(f"build: {secs:.1f} s for {len(logs)} sources "
-          f"({', '.join(build.SOURCES)})", flush=True)
+    print(f"build: {secs:.1f} s for {len(built)} sources "
+          f"({', '.join(built) or 'none'}); cached: "
+          f"{', '.join(s for s in build.SOURCES if s not in built) or 'none'}", flush=True)
+    if hasattr(build, "ptxas_log"):
+        logs = {src: build.ptxas_log(src) for src in build.SOURCES}
+    else:       # a --tree checkout from before the logs were saved
+        logs = built
     for src, out in logs.items():
         for kernel, regs, spills in _ptxas_kernels(out):
             print(f"ptxas {src} {kernel}: {regs} registers, {spills}", flush=True)
@@ -244,9 +270,6 @@ def phase_sass(logs):
         if not all(counts[op] for op in need):
             raise RuntimeError(f"{src}: no {' or '.join(need)} instructions in its SASS")
     for src, insts in DECODE_PATH.items():
-        if src not in logs:
-            print(f"ptxas {src}: built before this run, spills were checked then", flush=True)
-            continue
         spills = {k: sp for k, _, sp in _ptxas_kernels(logs[src])}
         for inst in insts:
             if spills.get(inst) != NO_SPILL:
@@ -254,9 +277,6 @@ def phase_sass(logs):
         print(f"ptxas {src}: the path instantiations {', '.join(insts)} do not spill",
               flush=True)
     for src, insts in REC_PATH.items():
-        if src not in logs:
-            print(f"ptxas {src}: built before this run, spills were checked then", flush=True)
-            continue
         spills = {k: sp for k, _, sp in _ptxas_kernels(logs[src])}
         missing = [i for i in insts if i not in spills]
         spilling = {k: sp for k, sp in spills.items() if sp != NO_SPILL}
@@ -1273,6 +1293,108 @@ def phase_recurrent(checks, card):
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- planning
+PLANNING_EXAMPLES = ("serve_disaggregated", "carbon_planner", "fleet_allocate", "autoscale")
+# the vector core's drain in scale mode (tests/test_scale_smoke.py's size)
+DRAIN_REPLICAS, DRAIN_REQUESTS, DRAIN_SPAN_S = 1000, 100_000, 120.0
+
+
+def phase_planning(tree: pathlib.Path) -> None:
+    """The paper's planning stack on this machine's host (numpy; no JAX is
+    installed here): the four planning examples of `tree` at their own
+    scale, a vector-core drain of 1000 replicas, and Algorithm 1's
+    contract on the scheduler's decision table."""
+    import contextlib
+    import io
+    import runpy
+
+    import numpy as np
+
+    from repro_torch.core.disagg import standard_catalog
+    from repro_torch.core.profiler import WorkloadPoint, profile
+    from repro_torch.core.scheduler import collaborative_filtering, schedule
+    from repro_torch.serving.vector_core import VectorFleetSim
+    from repro_torch.serving.workload import DATASETS, sample_requests
+
+    secs = {}
+    printed = {}
+    for name in PLANNING_EXAMPLES:
+        t = time.perf_counter()
+        main_fn = runpy.run_path(str(tree / "examples" / f"torch_{name}.py"))["main"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            main_fn()
+        secs[name] = time.perf_counter() - t
+        printed[name] = out.getvalue()
+        print(f"planning example torch_{name}.py ({secs[name]:.2f} s):\n"
+              + printed[name].rstrip(), flush=True)
+
+    # Algorithm 1 at serve_disaggregated's scale: 9 configs x 12 workloads,
+    # 60 s windows, 70% of the cells profiled, the rest completed by ALS
+    t = time.perf_counter()
+    catalog = standard_catalog()
+    workloads = [WorkloadPoint(ds, "p50", q) for ds in ("sharegpt", "humaneval", "longbench")
+                 for q in (0.5, 1.0, 2.0, 4.0)]
+    db = profile(catalog, workloads, duration_s=60.0, coverage=0.7, seed=1)
+    slo_target = 0.9
+    decisions = schedule(db, slo_target=slo_target, priority="slo")
+    c, s = collaborative_filtering(db)
+    if sorted(decisions) != sorted(db.workloads):
+        raise RuntimeError(f"schedule decided {sorted(decisions)}, not every workload")
+    for j, w in enumerate(db.workloads):
+        d = decisions[w]
+        i = db.configs.index(d.config)
+        feasible = np.flatnonzero(s[:, j] >= slo_target)
+        if (d.expected_carbon_g_per_token, d.expected_slo_attainment) != (c[i, j], s[i, j]):
+            raise RuntimeError(f"{w}: the decision's expectations are not the matrices'")
+        if d.feasible != bool(feasible.size):
+            raise RuntimeError(f"{w}: feasible={d.feasible}, but {feasible.size} configs meet "
+                               f"the SLO target")
+        if d.feasible and not (s[i, j] >= slo_target and c[i, j] == c[feasible, j].min()):
+            raise RuntimeError(f"{w}: {d.config} is not the least-carbon feasible config")
+        if not d.feasible and s[i, j] != s[:, j].max():
+            raise RuntimeError(f"{w}: {d.config} is not the best-SLO fallback")
+        row = (f"{w:24s} {d.config:20s} {d.expected_carbon_g_per_token*1e3:8.4f} "
+               f"{d.expected_slo_attainment:6.2f} {str(d.feasible):>4s}")
+        if row not in printed["serve_disaggregated"].splitlines():
+            raise RuntimeError(f"the example's decision table lacks {row!r}")
+    secs["algorithm1"] = time.perf_counter() - t
+    print(f"planning algorithm 1: {len(db.entries)}/{len(catalog) * len(workloads)} cells "
+          f"profiled; every workload decided; {sum(d.feasible for d in decisions.values())} "
+          f"feasible decisions are the least-carbon feasible configs, the rest the best-SLO "
+          f"fallback; the example printed this table ({secs['algorithm1']:.2f} s)", flush=True)
+
+    # the vector core in scale mode: every request finishes with its tokens
+    t = time.perf_counter()
+    ds = DATASETS["sharegpt"]
+    cfg = next(c for c in catalog if c.name == "standalone")
+    reqs = sample_requests(ds, qps=DRAIN_REQUESTS / DRAIN_SPAN_S, duration_s=DRAIN_SPAN_S,
+                           seed=0, fixed_size=ds.size_at("p50"))
+    if len(reqs) < DRAIN_REQUESTS:
+        raise RuntimeError(f"drew {len(reqs)} requests, fewer than {DRAIN_REQUESTS}")
+    parts = [reqs[i::DRAIN_REPLICAS] for i in range(DRAIN_REPLICAS)]
+    stats = VectorFleetSim(cfg.mode, cfg.target, parts, seeds=list(range(DRAIN_REPLICAS)),
+                           rng_mode="batched", record_segments=False).drain().stats()
+    secs["drain"] = time.perf_counter() - t
+    if (stats["n_replicas"], stats["n_requests"], stats["finished"]) != \
+            (DRAIN_REPLICAS, len(reqs), len(reqs)):
+        raise RuntimeError(f"drain lost requests: {stats}")
+    if stats["total_tokens"] != stats["expected_tokens"]:
+        raise RuntimeError(f"drain emitted {stats['total_tokens']} tokens, expected "
+                           f"{stats['expected_tokens']}")
+    for chip, busy in stats["busy_s"].items():
+        energy = stats["energy_j"][chip]
+        if not (np.isfinite(busy) and busy >= 0.0 and np.isfinite(energy) and energy >= 0.0):
+            raise RuntimeError(f"drain: {chip} busy {busy} s, energy {energy} J")
+    if not np.isfinite(stats["max_finish_s"]):
+        raise RuntimeError(f"drain: max finish {stats['max_finish_s']}")
+    print(f"planning drain: {DRAIN_REPLICAS} replicas x {len(reqs)} requests, every request "
+          f"finished with its {stats['expected_tokens']} tokens in all; modelled max finish "
+          f"{stats['max_finish_s']:.1f} s ({secs['drain']:.2f} s)", flush=True)
+    print("planning host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + f"; total {sum(secs.values()):.2f}", flush=True)
+
+
 def _print_port_kernels(on_card) -> None:
     """The profile's rows of the port's own kernels (the `*_kernel`
     functions of the imported package's csrc/, each in its source's
@@ -1360,6 +1482,10 @@ def main(argv: list[str]) -> int:
     phase_engine(checks)
     torch.cuda.empty_cache()
     phase_recurrent(checks, card)
+    if other is not None and importlib.util.find_spec("repro_torch.core.disagg") is None:
+        print("planning: not in this tree", flush=True)
+    else:
+        phase_planning(other or ROOT)
     idle = [n for n, ck in checks.items() if ck.path_launches == 0]
     if idle:
         raise RuntimeError(f"kernels never launched on a path: {idle}")

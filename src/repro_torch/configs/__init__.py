@@ -12,7 +12,7 @@ shape maps to the step function the dry-run lowers:
 pure full-attention archs record a documented skip (DESIGN.md §4).
 
 The reference's ``input_specs`` (ShapeDtypeStructs for the dry-run) is not
-ported yet: it comes with training (ROADMAP queue 1, item 10).
+ported yet: it comes with training (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 

@@ -7,6 +7,9 @@ hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads at once. Nothing is built when a module is imported:
 the first launch builds its library, and `build_all()` builds every source
 in parallel (one `nvcc` per source), as `chip_smoke.py` does up front.
+Each library keeps its ptxas log (registers and spills, `-Xptxas=-v`) in
+`lib<source>-<hash>.ptxas.txt` beside it, so a check of spills can read
+the log of a library built by an earlier process (`ptxas_log`).
 
 Every launcher returns a `cudaError_t` code (the launch's
 `cudaGetLastError()`); `CudaKernel.launch` raises on anything but 0 and
@@ -61,9 +64,14 @@ def _nvcc_cmd(source: str, out: pathlib.Path) -> list[str]:
             str(CSRC / f"{source}.cu")]
 
 
+def _log_path(lib: pathlib.Path) -> pathlib.Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
 def build_all(sources=SOURCES) -> dict[str, str]:
     """Compile every source whose library is missing, all at once; return
-    {source: compiler log} for the ones built (ptxas register/spill lines)."""
+    {source: compiler log} for the ones built (ptxas register/spill lines).
+    Each log is saved beside its library before the library appears."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for src in sources:
@@ -82,10 +90,29 @@ def build_all(sources=SOURCES) -> dict[str, str]:
             failed.append(f"{src}.cu:\n{out}")
             tmp.unlink(missing_ok=True)
         else:
-            os.replace(tmp, lib)          # atomic: a reader sees all or nothing
+            # atomic, log first: a reader that sees the library sees its log
+            tmp_log = lib.with_suffix(f".{os.getpid()}.log.tmp")
+            tmp_log.write_text(out)
+            os.replace(tmp_log, _log_path(lib))
+            os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def ptxas_log(source: str) -> str:
+    """The ptxas log saved beside `source`'s library, whether this process
+    built it or an earlier one did. Raises if the library has no log (it
+    was built by an older version of this module): its spills were never
+    checked, so it must be deleted and rebuilt."""
+    lib = _lib_path(source)
+    if not lib.exists():
+        raise FileNotFoundError(f"{lib} is not built")
+    log = _log_path(lib)
+    if not log.exists():
+        raise RuntimeError(f"{lib} has no ptxas log beside it ({log.name}), so its "
+                           f"spills cannot be checked: delete it and rebuild")
+    return log.read_text()
 
 
 class CudaKernel:

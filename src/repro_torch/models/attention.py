@@ -75,7 +75,7 @@ def _qkv(p: dict, x, a: AttentionConfig):
 def _rope(q, k, positions, a: AttentionConfig):
     if a.m_rope_sections is not None:
         raise NotImplementedError(
-            "M-RoPE (vlm family) is not ported yet: ROADMAP queue 1, item 9")
+            "M-RoPE (vlm family) is not ported yet: ROADMAP queue 1, item 10")
     sin, cos = rope_angles(positions, a.head_dim, a.rope_theta)
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos)
 

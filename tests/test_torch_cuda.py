@@ -461,3 +461,19 @@ def test_blocked_path_refuses_the_card(gen):
     q = _rand(gen, 1, 8, 4, 32)
     with pytest.raises(ValueError, match="CPU only"):
         multihead_attention(q, q, q, AttentionConfig(4, 4, 32), ExecConfig(use_kernels=False))
+
+
+def test_first_use_build_saves_its_ptxas_log(gen, tmp_path, monkeypatch):
+    """A library built at first use (CudaKernel._bind) keeps its ptxas log
+    beside it, so a later spill check reads the log of a library it did
+    not build."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    fresh = build.CudaKernel(dec.KERNEL.source, dec.KERNEL.symbol, dec.KERNEL.argtypes)
+    fresh._bind()
+    lib = build._lib_path(dec.KERNEL.source)
+    assert lib.parent == tmp_path and lib.exists()
+    log = build.ptxas_log(dec.KERNEL.source)
+    assert lib.with_suffix(".ptxas.txt").read_text() == log
+    assert "Compiling entry function" in log and "spill stores" in log
