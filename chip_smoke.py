@@ -20,7 +20,8 @@ no result:
            recurrences must hold HMMA (tensor-core) and LDGSTS (cp.async)
            instructions, that of the two decode kernels LDGSTS, the decodes'
            path instantiations (bf16, one query row a kv head, head_dim 128
-           and 80) must not spill, and no instantiation of the two
+           and 80; the dense decode also at 8 rows a kv head and head_dim 64,
+           for the families phase) must not spill, and no instantiation of the two
            recurrences may (their path ones, bf16 at N 64 and N = P = 64,
            among them).
   kernels  each hand-written kernel against its plain PyTorch version
@@ -49,7 +50,9 @@ no result:
            path runs, the recurrences also on their fp32 route and SSD at
            chunks of 32, 64 and 128 tokens, the decodes also at the serialized
            shapes (one sequence over 459 cached tokens, target and draft),
-           with the decodes' split of the keys printed for each; the paged
+           with the decodes' split of the keys printed for each, and the
+           dense decode held and timed at the families' decode shapes
+           (qwen2-vl-72b's G 8, musicgen-medium's head_dim 64); the paged
            kernels, which no one PyTorch call computes off a paged pool, get
            a yardstick of their own: SDPA over K/V pre-gathered contiguous,
            gather excluded.
@@ -73,6 +76,24 @@ no result:
            prefill/extend, flash 9 per zamba2 prefill, decode 9 per zamba2
            step). First-token logits of the kernel path are held against
            the plain path (impl="torch") on the card.
+  families qwen2-moe-a2.7b (moe) at full width and depth (bf16, seeded
+           random weights, 24 layers, 60 experts top-4 plus the shared one)
+           through ServingEngine over the engine phase's prompts: standalone
+           serialized paged and dense, standalone continuous paged, dpd
+           continuous; launches held exactly to 24 flash a prefill pass and
+           24 paged (or dense) decodes a step, no gather on a paged run;
+           first-token logits of the kernel path against the plain path
+           beside their noise floor and the routing choices each flips; a
+           profile of one continuous run. Then qwen2-vl-72b (vlm, full width,
+           16 of its 80 layers) on 4 x 451 patch embeddings at three M-RoPE
+           streams (a text prefix, then a 21 x 21 patch grid) and
+           musicgen-medium (audio, full width and depth) on 4 x 451 frame
+           embeddings, each through prefill, 16 greedy serve_steps
+           (musicgen's fed seeded frames) and an extend_step of 4 tokens
+           from the saved cache held against 4 serve_steps, launches exact
+           (flash a layer a prefill, dense decode a layer a step), and
+           first-token logits against the plain path. Under --tree, a tree
+           without the MoE prints "families: not in this tree".
   planning the paper's planning stack on the host (numpy, no JAX): the
            main() of examples/torch_{serve_disaggregated, carbon_planner,
            fleet_allocate, autoscale}.py at the reference examples' scale
@@ -94,7 +115,7 @@ The engine's modelled clock, energy and carbon are the cost model's figures
 for the chips it names (a100 new, t4 old), not measurements of this card.
 The last lines of standard output are: the nvidia-smi line, one JSON object
 {"kernels": [...]}, and {"ok": true, "device": {...}}. The launches there
-are the sums over the path phases (engine and recurrent).
+are the sums over the path phases (engine, recurrent and families).
 """
 from __future__ import annotations
 
@@ -156,7 +177,8 @@ TOL_ORACLE_BF16 = {"flash_attention": 4e-2, "decode_attention": 1e-2,
                    "paged_decode_attention": 1e-2, "paged_prefill_attention": 6e-2,
                    "rwkv6_wkv": 6e-5, "mamba2_ssd": 1e-4}
 #   first-token logits, kernel path vs plain path, both bf16: every layer
-#   adds one attention output's bf16 difference (largest reading 9.4e-2)
+#   adds one attention output's bf16 difference (largest reading 9.4e-2;
+#   qwen2-vl-72b at 16 layers 9.9e-2, musicgen-medium 8.9e-2, PR 17)
 TOL_LOGITS = 2.5e-1
 #   the recurrent models' first-token logits, kernel path vs plain path:
 #   the recurrences agree to ~1e-5 in fp32, but a bf16 rounding that flips
@@ -173,6 +195,15 @@ TOL_LOGITS_REC = 1.3
 #   at the 4th token, the same on the plain path, impl="torch", as on the
 #   kernel path; PERF.md, PR 12)
 TOL_EXTEND = 1.0
+#   qwen2-moe-a2.7b's first-token logits, kernel path vs plain path, both
+#   bf16: a bf16 difference in one layer's attention output can flip a top-4
+#   routing choice in a later layer, and a flipped choice moves the logits
+#   far more than the attention difference itself. The phase measures the
+#   noise floor: the plain path against itself with its query rows in two
+#   blocks (another summation order), and prints the routing choices each
+#   reading flips. Largest reading 3.1e-1 (3529 of 43296 routing choices
+#   differ), the noise floor 1.7e-1 (1653 differ) (PERF.md, PR 17)
+TOL_LOGITS_MOE = 1.0
 
 PROMPT_LENS = (287, 333, 402, 451)
 MAX_NEW = 16
@@ -187,6 +218,14 @@ DECODE_KEYS = (1, 63, 64, 65, 127, 128, 129, 459)
 REC_ARCHS = ("rwkv6-7b", "zamba2-2.7b")
 REC_BATCH = 4
 EXTEND = 4
+# the families phase: qwen2-moe-a2.7b through the engine (the engine phase's
+# prompts), qwen2-vl-72b at full width with its depth cut to fit the card
+# beside nothing else, and musicgen-medium, both through the backbone at the
+# recurrent phase's batch (4 x 451 embeddings; qwen2-vl's a text prefix of
+# VL_TEXT tokens, then a 21 x 21 grid of patches)
+MOE_ARCH = "qwen2-moe-a2.7b"
+VL_ARCH, VL_LAYERS, VL_TEXT = "qwen2-vl-72b", 16, 10
+AUDIO_ARCH = "musicgen-medium"
 
 
 def log(msg: str) -> None:
@@ -234,8 +273,11 @@ def phase_build():
 
 
 # the decode kernels' instantiations on the serving paths: bf16, one query
-# row a kv head (G = 1), llama's head_dim 128 and zamba2's 80
-DECODE_PATH = {"decode_attention": ("decode_kernel<bf16,128,1>", "decode_kernel<bf16,80,1>"),
+# row a kv head (G = 1), llama's and qwen2-moe's head_dim 128 and zamba2's 80;
+# the dense decode also at qwen2-vl-72b's G 8 (8 rows a block) and
+# musicgen-medium's head_dim 64
+DECODE_PATH = {"decode_attention": ("decode_kernel<bf16,128,1>", "decode_kernel<bf16,80,1>",
+                                    "decode_kernel<bf16,128,8>", "decode_kernel<bf16,64,1>"),
                "paged_decode_attention": ("paged_decode_kernel<bf16,128,1>",
                                           "paged_decode_kernel<bf16,80,1>")}
 NO_SPILL = "0 bytes spill stores, 0 bytes spill loads"
@@ -354,6 +396,7 @@ class KernelCheck:
         self.timing = {}
         self.timing_d80 = None       # flash/decode at zamba2's head_dim 80 shape
         self.timing_b1 = {}          # the decodes at one sequence: label -> timing
+        self.timing_fam = {}         # the decode at the families' shapes: label -> timing
         self.path_launches = 0
 
     def identical(self, fn, what: str) -> None:
@@ -412,6 +455,9 @@ class KernelCheck:
             rec["batch_1"] = {k: dict(v, library_ratio=_ratio(v["ms"], v["library_ms"]),
                                       yardstick_ratio=_ratio(v["ms"], v.get("yardstick_ms")))
                               for k, v in self.timing_b1.items()}
+        if self.timing_fam:
+            rec["families"] = {k: dict(v, library_ratio=_ratio(v["ms"], v["library_ms"]))
+                               for k, v in self.timing_fam.items()}
         return rec
 
 
@@ -613,6 +659,30 @@ def phase_kernels(gen):
     # the serialized policy decodes one sequence at a time: 459 cached tokens
     c.timing_b1 = {"llama-7b": time_dense(1, kvh7, g7, d7, [SERIAL_CACHED], src=more),
                    "llama-1b": time_dense(1, kvh1, g1, d1, [SERIAL_CACHED], src=more)}
+    # the two instantiations the families phase brings to a serving path:
+    # qwen2-vl-72b's 8 query heads a kv head (decode_kernel<bf16,128,8>) and
+    # musicgen-medium's head_dim 64 (<bf16,64,1>), held at that phase's decode
+    # shapes (ragged and mid-decode) and timed mid-decode; from a generator of
+    # their own, so every earlier case keeps its inputs
+    fam = torch.Generator(device=cuda)
+    fam.manual_seed(2)
+    fam_pos = [s_rec + MAX_NEW // 2] * REC_BATCH
+    for arch in (VL_ARCH, AUDIO_ARCH):
+        a = get_config(arch).attn
+        kv, g, d = a.num_kv_heads, a.num_heads // a.num_kv_heads, a.head_dim
+        for pos in (rec_pos, fam_pos):
+            b = len(pos)
+            q = rand(b, 1, kv * g, d, dtype=bf16, g=fam)
+            kc, vc = rand(b, kv, rec_slots, d, dtype=bf16, g=fam), rand(b, kv, rec_slots, d,
+                                                                         dtype=bf16, g=fam)
+            p = ints(pos)
+            oracle = ref.decode_attention_ref(q[:, 0].reshape(b, kv, g, d), kc, vc, p)
+            c.hold(ops.decode_attention(q, kc, vc, p),
+                   ops.decode_attention(q, kc, vc, p, impl="torch"),
+                   oracle.reshape(b, 1, kv * g, d), bf16,
+                   f"{arch} B={b} KV={kv} G={g} S={rec_slots} D={d} pos={pos} bf16")
+        c.timing_fam[f"{arch} (G {g}, D {d})"] = time_dense(REC_BATCH, kv, g, d, fam_pos,
+                                                            rec_slots, src=fam)
 
     # ---- paged decode, through a real PagedKVPool: shared (adopted) pages
     # with refcount > 1, ragged lengths incl. 0, the dump page poisoned; then
@@ -900,6 +970,8 @@ def phase_kernels(gen):
             shapes.append((" at zamba2's head_dim 80 shape", ck.timing_d80))
         shapes += [(f" at one sequence ({k}, {SERIAL_CACHED} cached tokens)", t)
                    for k, t in ck.timing_b1.items()]
+        shapes += [(f" at {k}'s decode, {REC_BATCH} sequences of {s_rec + MAX_NEW // 2} "
+                    "cached tokens", t) for k, t in ck.timing_fam.items()]
         for where, t in shapes:
             print(f"{ck.name}: timed{where} (ms) {_timing_line(t)}", flush=True)
     return checks
@@ -1157,19 +1229,7 @@ def phase_recurrent(checks, card):
                    "step": {"decode_attention": taps}, "extend": {"mamba2_ssd": L}}
 
         def counted(what, want, fn):
-            """Run fn, synchronise, and hold the kernels it launched to
-            exactly `want`; returns (result, wall seconds)."""
-            before = {n: ck.kernel.launches for n, ck in checks.items()}
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t
-            used = {n: ck.kernel.launches - before[n] for n, ck in checks.items()}
-            expected = {n: want.get(n, 0) for n in checks}
-            if used != expected:
-                raise RuntimeError(f"{arch} {what}: launches {used}, expected {expected}")
-            return out, secs
+            return _counted(checks, f"{arch} {what}", want, fn)
 
         def finite(what, logits):
             if not torch.isfinite(logits.float()).all():
@@ -1291,6 +1351,314 @@ def phase_recurrent(checks, card):
         _print_port_kernels(on_card)
         del params, cache, saved, ext_cache, pc
         torch.cuda.empty_cache()
+
+
+def _counted(checks, what, want, fn):
+    """Run fn, synchronise, and hold the kernels it launched to exactly
+    `want` ({kernel: launches}, the rest 0); returns (result, wall s)."""
+    import torch
+
+    before = {n: ck.kernel.launches for n, ck in checks.items()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    used = {n: ck.kernel.launches - before[n] for n, ck in checks.items()}
+    expected = {n: want.get(n, 0) for n in checks}
+    if used != expected:
+        raise RuntimeError(f"{what}: launches {used}, expected {expected}")
+    return out, secs
+
+
+# --------------------------------------------------------------- families
+def phase_families(checks, card):
+    """The moe family through ServingEngine at qwen2-moe-a2.7b's full width
+    and depth, then the vlm and audio families through the backbone."""
+    import torch
+
+    _serve_moe(checks, card)
+    torch.cuda.empty_cache()
+    for arch in (VL_ARCH, AUDIO_ARCH):
+        _frontend_model(checks, card, arch)
+        torch.cuda.empty_cache()
+
+
+def _serve_moe(checks, card):
+    import numpy as np
+    import torch
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import backbone
+    from repro_torch.models.layers import ExecConfig
+    from repro_torch.serving.batching import BatchPolicy
+    from repro_torch.serving.engine import ServingEngine
+
+    cuda = torch.device("cuda")
+    cfg = get_config(MOE_ARCH)
+    L, m = cfg.num_layers, cfg.moe
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    t = time.perf_counter()
+    params = backbone.init_params(gen, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    log(f"init: {time.perf_counter() - t:.1f} s for {MOE_ARCH} ({n_params / 1e9:.2f} B params, "
+        f"bf16, full width and depth)")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in PROMPT_LENS]
+    pool_blocks = sum(-(-(n + MAX_NEW + 8) // BLOCK) for n in PROMPT_LENS) + 16
+
+    def serve(kind, policy, paged):
+        """One engine run over the prompts; (engine, finished, wall s)."""
+        batching = BatchPolicy(block_size=BLOCK) if policy == "continuous" else "serialized"
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng = ServingEngine(cfg, params, kind=kind, new_chip="a100",
+                            old_chip="t4" if kind == "dpd" else None, temperature=0.0,
+                            seed=0, max_batch=8, pool_blocks=pool_blocks, block_size=BLOCK,
+                            batching=batching, paged=paged, device=cuda)
+        for p in prompts:
+            eng.submit(p, MAX_NEW, arrival_s=0.0)
+        done = eng.run_until_idle()
+        torch.cuda.synchronize()
+        return eng, done, time.perf_counter() - t
+
+    # the backbone passes each run makes, counted (and each decode step timed
+    # on the host clock between two synchronisations) by wrapping the entry
+    # points the engine calls
+    calls, step_s = {}, []
+
+    def counting(name, fn):
+        def wrapped(*args, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            if name == "prefill":
+                return fn(*args, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            return out
+        return wrapped
+
+    runs = [("standalone", "serialized", True), ("standalone", "serialized", False),
+            ("standalone", "continuous", True), ("dpd", "continuous", True)]
+    steps = {}
+    for kind, policy, paged in runs:
+        name = f"{kind}/{policy}/paged={paged}"
+        calls.clear()
+        step_s.clear()
+        for ck in checks.values():
+            ck.kernel.launches = 0
+        with mock.patch.object(backbone, "prefill", counting("prefill", backbone.prefill)), \
+                mock.patch.object(backbone, "serve_step_paged",
+                                  counting("paged", backbone.serve_step_paged)), \
+                mock.patch.object(backbone, "serve_step", counting("dense", backbone.serve_step)):
+            eng, done, wall = serve(kind, policy, paged)
+        used = {n: ck.kernel.launches for n, ck in checks.items()}
+        for ck in checks.values():
+            ck.path_launches += ck.kernel.launches
+        want = {n: 0 for n in checks}
+        want.update(flash_attention=L * calls.get("prefill", 0),
+                    paged_decode_attention=L * calls.get("paged", 0),
+                    decode_attention=L * calls.get("dense", 0))
+        if used != want or not calls.get("prefill") or not calls.get("paged" if paged else "dense"):
+            raise RuntimeError(f"{MOE_ARCH} {name}: launches {used}, expected {want} for "
+                               f"backbone passes {calls}")
+        if eng.paged is not paged or (paged and eng.pool.gather_calls):
+            raise RuntimeError(f"{MOE_ARCH} {name}: paged={eng.paged}, "
+                               f"{eng.pool.gather_calls} gathers")
+        if len(done) != len(prompts) or any(
+                len(r.out_tokens) != MAX_NEW or r.status != "ok" for r in done):
+            raise RuntimeError(f"{MOE_ARCH} {name}: requests did not all finish with "
+                               f"{MAX_NEW} tokens: {[len(r.out_tokens) for r in done]}")
+        tokens = [t for r in sorted(done, key=lambda r: r.req_id) for t in r.out_tokens]
+        digest = hashlib.sha1(np.asarray(tokens, dtype=np.int64).tobytes()).hexdigest()[:12]
+        steps[name] = sorted(step_s)
+        print(f"families {MOE_ARCH} {kind:10s} {policy:10s} paged={str(paged):5s} wall "
+              f"{wall:.2f} s on this card; backbone passes {calls}; decode step (ms, host clock "
+              f"between synchronisations) median {1e3 * steps[name][len(step_s) // 2]:.2f}, "
+              f"min {1e3 * steps[name][0]:.2f}; streams {digest}; launches {used}", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    # a decode step at B 4 gives each expert max(int(4 * top_k * cf / E), top_k)
+    # slots, so every step reads every expert's weights: the bound is the
+    # weights read (all but the embedding table, of which B rows) over HBM
+    weight_bytes = sum(x.numel() * x.element_size() for x in _leaves(params["layers"])) + sum(
+        x.numel() * x.element_size() for x in (params["final_norm"], params["tok"]["lm_head"]))
+    med = steps["standalone/serialized/paged=True"]
+    print(f"families {MOE_ARCH} decode at B {len(prompts)}: each expert gets "
+          f"{max(int(len(prompts) * m.top_k * m.capacity_factor / m.num_experts), m.top_k)} "
+          f"slots, so a step reads {weight_bytes / 1e9:.2f} GB of weights; bound "
+          f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms; measured median "
+          f"{1e3 * med[len(med) // 2]:.2f} ms a step (serialized paged, host clock on {card})",
+          flush=True)
+
+    # first-token logits, kernel path vs plain path, and the noise floor: the
+    # plain path against itself with the prompt's rows in two query blocks
+    # instead of one. Each path's routing choices are recorded, layer by layer
+    plain = ExecConfig(impl="torch")
+    tok = torch.from_numpy(prompts[-1]).to(cuda)[None]
+    routes = {}
+
+    def routed(tag, exec_cfg):
+        moe_ffn = backbone.moe_ffn
+
+        def recording(p, x, cfg_, ex):
+            logits = (x.reshape(-1, x.shape[-1]) @ p["router"].to(x.dtype)).float()
+            top = torch.topk(torch.softmax(logits, dim=-1), m.top_k, dim=-1).indices
+            routes.setdefault(tag, []).append(top)
+            return moe_ffn(p, x, cfg_, ex)
+
+        with mock.patch.object(backbone, "moe_ffn", recording):
+            return backbone.prefill(params, {"tokens": tok}, cfg, exec_cfg)[0]
+
+    got = routed("kernel", ExecConfig())
+    want = routed("plain", plain)
+    with _plain_q_block(-(-tok.shape[1] // 2)):
+        floor = routed("floor", plain)
+
+    def differing(tag):
+        """(token, k) routing choices of `tag` that the plain path did not make."""
+        return sum(int((a[:, :, None] != b[:, None, :]).all(-1).sum())
+                   for a, b in zip(routes[tag], routes["plain"]))
+
+    choices = L * tok.shape[1] * m.top_k
+    for what, a in (("kernel vs plain", got), ("noise floor (plain path, q_block halved) vs "
+                                                "plain", floor)):
+        if not torch.isfinite(a.float()).all():
+            raise RuntimeError(f"{MOE_ARCH} {what}: non-finite first-token logits")
+    _, rel = _rel(got, want)
+    _, rel_floor = _rel(floor, want)
+    print(f"first-token logits, {MOE_ARCH} prefill: kernel vs plain on the card {rel:.3e} "
+          f"(row-normalised, tol {TOL_LOGITS_MOE:g}), routing choices that differ "
+          f"{differing('kernel')} of {choices}; noise floor (the plain path with its "
+          f"{tok.shape[1]} query rows in two blocks) {rel_floor:.3e}, routing choices that "
+          f"differ {differing('floor')}; argmax {int(got.argmax())} vs {int(want.argmax())} "
+          f"(floor {int(floor.argmax())})", flush=True)
+    if rel > TOL_LOGITS_MOE:
+        raise RuntimeError(f"{MOE_ARCH}: kernel path logits disagree ({rel:.3e})")
+
+    # where a continuous run's time goes
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, wall = serve("standalone", "continuous", True)
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in on_card)
+    print(f"profile {MOE_ARCH} standalone continuous paged: wall {wall:.3f} s with the "
+          f"profiler on, device busy {busy_us / 1e6:.3f} s = {busy_us / 1e6 / wall:.1%} of wall",
+          flush=True)
+    for e in sorted(on_card, key=lambda e: -e.device_time_total)[:10]:
+        print(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}", flush=True)
+    _print_port_kernels(on_card)
+    del params
+
+
+def _frontend_model(checks, card, arch):
+    """qwen2-vl-72b (patch embeddings at three M-RoPE streams) or
+    musicgen-medium (frame embeddings) through prefill, MAX_NEW greedy
+    serve_steps (musicgen's fed seeded frames), and an extend_step of EXTEND
+    tokens from the saved cache against EXTEND serve_steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import backbone
+    from repro_torch.models.layers import ExecConfig
+
+    cuda = torch.device("cuda")
+    cfg = get_config(arch)
+    cut = ""
+    if arch == VL_ARCH:
+        cfg = dataclasses.replace(cfg, num_layers=VL_LAYERS)
+        cut = f", depth cut to {VL_LAYERS} of {get_config(arch).num_layers} layers"
+    L, d = cfg.num_layers, cfg.d_model
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    t = time.perf_counter()
+    params = backbone.init_params(gen, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    log(f"init: {time.perf_counter() - t:.1f} s for {arch} ({n_params / 1e9:.2f} B params, bf16, "
+        f"full width{cut})")
+    b, s = REC_BATCH, max(PROMPT_LENS)
+    # the stubbed frontends' embeddings, at the token embedding's scale
+    embeds = (torch.randn(b, s, d, generator=gen, device=cuda) * 0.02).to(torch.bfloat16)
+    frames = (torch.randn(MAX_NEW, b, d, generator=gen, device=cuda) * 0.02).to(torch.bfloat16)
+    batch = {"embeds": embeds}
+    if arch == VL_ARCH:
+        # Qwen2-VL's layout (arXiv:2409.12191 §2.1): a text prefix with
+        # t = h = w = i, then a grid of patches at t = VL_TEXT with h and w
+        # its row and column
+        grid = int((s - VL_TEXT) ** 0.5)
+        assert VL_TEXT + grid * grid == s
+        text = np.arange(VL_TEXT)
+        row, col = np.divmod(np.arange(grid * grid), grid)
+        streams = np.stack([np.concatenate([text, np.full(grid * grid, VL_TEXT)]),
+                            np.concatenate([text, VL_TEXT + row]),
+                            np.concatenate([text, VL_TEXT + col])])
+        batch["positions"] = torch.from_numpy(streams).to(cuda, torch.int32)[:, None].expand(
+            3, b, s)
+    per_prefill, per_step = {"flash_attention": L}, {"decode_attention": L}
+
+    def counted(what, want, fn):
+        return _counted(checks, f"{arch} {what}", want, fn)
+
+    def finite(what, logits):
+        if not torch.isfinite(logits.float()).all():
+            raise RuntimeError(f"{arch} {what}: non-finite logits")
+
+    for ck in checks.values():
+        ck.kernel.launches = 0
+    (first, cache), prefill_s = counted(
+        "prefill", per_prefill, lambda: backbone.prefill(params, batch, cfg))
+    finite("prefill", first)
+    cache = backbone._grow_cache(cache, cfg, s + MAX_NEW + EXTEND)
+    tok, step_s = first.argmax(-1), []
+    for i in range(MAX_NEW):
+        kw = {"embeds": frames[i]} if arch == AUDIO_ARCH else {}
+        (logits, cache), secs = counted(
+            f"serve_step {i}", per_step, lambda: backbone.serve_step(params, cache, tok, cfg, **kw))
+        finite(f"serve_step {i}", logits)
+        step_s.append(secs)
+        tok = logits.argmax(-1)
+    saved = _clone(cache)
+    ext_tok, step_logits = [], []
+    for i in range(EXTEND):
+        ext_tok.append(tok)
+        (logits, cache), _ = counted(f"serve_step {MAX_NEW + i}", per_step,
+                                     lambda: backbone.serve_step(params, cache, tok, cfg))
+        step_logits.append(logits)
+        tok = logits.argmax(-1)
+    (ext_logits, _), ext_s = counted(
+        "extend_step", {}, lambda: backbone.extend_step(params, _clone(saved),
+                                                        torch.stack(ext_tok, 1), cfg))
+    finite("extend_step", ext_logits)
+    for ck in checks.values():
+        ck.path_launches += ck.kernel.launches
+    ext_rel = max(_rel(ext_logits[:, i], step_logits[i])[1] for i in range(EXTEND))
+    print(f"families {arch}: prefill {b}x{s} {'patch' if arch == VL_ARCH else 'frame'} "
+          f"embeddings {prefill_s:.3f} s wall, decode {np.mean(step_s) * 1e3:.1f} ms per step "
+          f"(min {min(step_s) * 1e3:.1f}, max {max(step_s) * 1e3:.1f}) over {MAX_NEW} greedy "
+          f"serve_steps, extend_step of {EXTEND} tokens {ext_s * 1e3:.1f} ms; host clock on "
+          f"{card}; extend_step vs {EXTEND} serve_steps from the same cache, logits "
+          f"(row-normalised) {ext_rel:.3e} (tol {TOL_EXTEND:g})", flush=True)
+    if ext_rel > TOL_EXTEND:
+        raise RuntimeError(f"{arch}: extend_step disagrees with serve_steps ({ext_rel:.3e})")
+    want, _ = backbone.prefill(params, batch, cfg, ExecConfig(impl="torch"))
+    finite("plain prefill", want)
+    _, rel = _rel(first, want)
+    cos = torch.nn.functional.cosine_similarity(first.float(), want.float(), dim=-1).min()
+    print(f"first-token logits, {arch} prefill: kernel vs plain on the card {rel:.3e} "
+          f"(row-normalised, tol {TOL_LOGITS:g}), cosine {float(cos):.6f}; argmax "
+          f"{first.argmax(-1).tolist()} vs {want.argmax(-1).tolist()}", flush=True)
+    if rel > TOL_LOGITS:
+        raise RuntimeError(f"{arch}: kernel path logits disagree ({rel:.3e})")
+    del params, cache, saved
 
 
 # --------------------------------------------------------------- planning
@@ -1415,6 +1783,21 @@ def _print_port_kernels(on_card) -> None:
                   f"launches, {e.device_time_total / 1e3 / e.count:.4f} ms each", flush=True)
 
 
+def _plain_q_block(q_block: int):
+    """A context in which the plain flash version runs its query rows in
+    blocks of `q_block`: the same function in another summation order."""
+    from unittest import mock
+
+    from repro_torch.kernels import flash_attention as fla
+
+    plain = fla.flash_attention_plain
+
+    def blocked(q, k, v, causal=True, _=None):
+        return plain(q, k, v, causal, q_block)
+
+    return mock.patch.object(fla, "flash_attention_plain", blocked)
+
+
 def _plain_half_chunk(fn):
     """Run fn with the plain WKV and SSD versions at half their chunk: the
     same functions in another fp32 summation order."""
@@ -1482,6 +1865,12 @@ def main(argv: list[str]) -> int:
     phase_engine(checks)
     torch.cuda.empty_cache()
     phase_recurrent(checks, card)
+    torch.cuda.empty_cache()
+    if other is not None and not hasattr(importlib.import_module("repro_torch.models.layers"),
+                                         "moe_ffn"):
+        print("families: not in this tree", flush=True)
+    else:
+        phase_families(checks, card)
     if other is not None and importlib.util.find_spec("repro_torch.core.disagg") is None:
         print("planning: not in this tree", flush=True)
     else:

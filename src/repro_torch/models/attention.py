@@ -1,6 +1,7 @@
-"""Attention of the dense family: whole-prompt prefill, single-token decode
-over a dense cache, K-token extension (speculative verify), and the two
-paged steps that read the KV pool in place.
+"""Attention of the attention families: whole-prompt prefill, single-token
+decode over a dense cache, K-token extension (speculative verify), and the
+two paged steps that read the KV pool in place. RoPE is M-RoPE where the
+config names sections (vlm); the paged steps refuse it, as the reference's.
 
 With `exec_cfg.use_kernels` (the port's default) prefill and decode go
 through `kernels/ops.py`: the hand-written kernels on the card, their plain
@@ -73,11 +74,14 @@ def _qkv(p: dict, x, a: AttentionConfig):
 
 
 def _rope(q, k, positions, a: AttentionConfig):
-    if a.m_rope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE (vlm family) is not ported yet: ROADMAP queue 1, item 10")
-    sin, cos = rope_angles(positions, a.head_dim, a.rope_theta)
+    """positions (B, S), or (3, B, S) under M-RoPE."""
+    sin, cos = rope_angles(positions, a.head_dim, a.rope_theta, a.m_rope_sections)
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+
+
+def _no_m_rope(a: AttentionConfig, what: str) -> None:
+    if a.m_rope_sections is not None:
+        raise ValueError(f"{what} does not support m-rope")
 
 
 def _write_at(cache, new, pos):
@@ -110,7 +114,7 @@ def attention_extend_block(p: dict, x, k_cache, v_cache, pos, cfg: ModelConfig,
     b, kk, _ = x.shape
     q, k, v = _qkv(p, x, a)
     prope = pos.long()[:, None] + torch.arange(kk, device=x.device)[None, :]
-    q, k = _rope(q, k, prope, a)
+    q, k = _rope(q, k, prope if a.m_rope_sections is None else prope.expand(3, b, kk), a)
     _write_at(k_cache, k.transpose(1, 2), pos)
     _write_at(v_cache, v.transpose(1, 2), pos)
 
@@ -147,6 +151,7 @@ def attention_paged_decode_block(p: dict, x, k_pages, v_pages, tables, lengths,
     tables go straight to `kops.paged_decode_attention`; the step's own
     (k, v) (B, 1, KV, D) come back for the caller's `scatter_append`."""
     a = cfg.attn
+    _no_m_rope(a, "paged decode")
     b = x.shape[0]
     q, k, v = _qkv(p, x, a)
     q, k = _rope(q, k, positions_rope, a)
@@ -162,6 +167,7 @@ def attention_paged_chunk_block(p: dict, x, k_pages, v_pages, table, ctx0: int,
     attend over its paged cached context (ctx0 tokens) plus themselves.
     Returns (out, k, v) with k/v (1, C, KV, D) for `scatter_chunk`."""
     a = cfg.attn
+    _no_m_rope(a, "paged prefill")
     _, c, _ = x.shape
     q, k, v = _qkv(p, x, a)
     positions = ctx0 + torch.arange(c, device=x.device)[None, :]

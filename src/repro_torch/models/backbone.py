@@ -1,17 +1,25 @@
 """Decoder backbone: the serving entry points of
-src/repro/models/backbone.py for the dense family (pre-norm GQA transformer,
-RoPE, SwiGLU), the ssm family (RWKV6) and the hybrid family (Mamba2 layers
-with one shared attention block applied every `hybrid_attn_every` layers).
+src/repro/models/backbone.py for all six families: dense (pre-norm GQA
+transformer, RoPE, SwiGLU), moe (the same with a routed mixture of experts
+in place of the SwiGLU), audio and vlm (the dense stack fed frame or patch
+embeddings, vlm with M-RoPE), ssm (RWKV6) and hybrid (Mamba2 layers with one
+shared attention block applied every `hybrid_attn_every` layers).
 
     init_params(gen, cfg)                               -> params
     init_cache(cfg, batch, max_seq, dtype, device)      -> cache
     prefill(params, batch, cfg, exec_cfg)               -> (last_logits, cache)
-    serve_step(params, cache, tokens, cfg, exec_cfg)    -> (logits, cache)
+    serve_step(params, cache, tokens, cfg, exec_cfg, embeds=None)
+                                                        -> (logits, cache)
     extend_step(params, cache, tokens, cfg, exec_cfg)   -> (logits, cache)
     serve_step_paged(params, pages_k, pages_v, ...)     -> (logits, k_tok, v_tok)
     prefill_chunk_paged(params, pages_k, pages_v, ...)  -> (logits, k_c, v_c)
 
-The two paged steps take the dense family only, as in the reference.
+`batch` is {"tokens": (B, S)} or, for the stubbed frontends (audio
+frames, vision patches), {"embeds": (B, S, D)}; M-RoPE takes
+{"positions": (3, B, S)} (three equal streams if absent). As in the
+reference, serve_step_paged takes the dense and moe families and
+prefill_chunk_paged the dense family only: MoE routes per group of tokens,
+so a chunk alone would route otherwise than the whole prefix does.
 
 Params are a dict: {"tok": {"embed", "lm_head"?}, "layers": [one dict per
 layer], "final_norm"} plus, for the hybrid, "shared_attn": {"attn",
@@ -19,7 +27,8 @@ layer], "final_norm"} plus, for the hybrid, "shared_attn": {"attn",
 `lax.scan`; here a Python loop walks the list, and the paged steps read pool
 layer l as the view `pages_k[l]`, never a copy. Caches, as the reference's:
 
-    dense   {"k", "v": (L, B, KV, S, D), "pos": (B,) int32}
+    dense, moe, audio, vlm
+            {"k", "v": (L, B, KV, S, D), "pos": (B,) int32}
     ssm     {"state": (L, B, H, N, N) fp32, "x_prev_att", "x_prev_ffn":
              (L, B, D), "pos"}
     hybrid  {"ssm_state": (L, B, H, N, P) fp32, "conv_state":
@@ -27,9 +36,6 @@ layer l as the view `pages_k[l]`, never a copy. Caches, as the reference's:
 
 serve_step and extend_step write new K/V into the given cache in place and
 return a cache with the recurrent states replaced and `pos` advanced.
-
-The moe, audio and vlm families are not ported yet and raise
-NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -52,9 +58,11 @@ from repro_torch.models.layers import (
     ExecConfig,
     embed_tokens,
     init_embed,
+    init_moe,
     init_rmsnorm,
     init_swiglu,
     lm_logits,
+    moe_ffn,
     rmsnorm,
     swiglu,
     torch_dtype,
@@ -64,18 +72,15 @@ Params = dict
 Cache = dict
 
 
-PORTED = ("dense", "ssm", "hybrid")
+PORTED = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+# the families whose every layer is attention + FFN over a dense K/V cache
+ATTENTION = ("dense", "moe", "audio", "vlm")
 
 
 def _check_family(cfg: ModelConfig, families: tuple = PORTED) -> None:
-    if cfg.family in families:
-        return
-    if cfg.family in PORTED:
+    if cfg.family not in families:
         raise ValueError(f"family {cfg.family!r} ({cfg.name}): this entry point "
                          f"takes {families} only, as in the reference")
-    raise NotImplementedError(
-        f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP "
-        "queue 1, item 10 (other families)")
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +89,10 @@ def _check_family(cfg: ModelConfig, families: tuple = PORTED) -> None:
 def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
     d, dtype, dev = cfg.d_model, torch_dtype(cfg), gen.device
     p = {"norm1": init_rmsnorm(d, dev), "norm2": init_rmsnorm(d, dev)}
-    if cfg.family == "dense":
+    if cfg.family == "moe":
+        p["attn"] = init_attention(gen, cfg)
+        p["moe"] = init_moe(gen, cfg)
+    elif cfg.family in ATTENTION:
         p["attn"] = init_attention(gen, cfg)
         p["ffn"] = init_swiglu(gen, d, cfg.d_ff, dtype)
     elif cfg.family == "ssm":
@@ -156,8 +164,12 @@ def _grow_cache(cache: Cache, cfg: ModelConfig, max_seq: int) -> Cache:
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
-def _ffn(lp: dict, x, cfg: ModelConfig):
-    return x + swiglu(lp["ffn"], rmsnorm(lp["norm2"], x, cfg.norm_eps))
+def _ffn(lp: dict, x, cfg: ModelConfig, exec_cfg: ExecConfig):
+    """The residual FFN of a layer: the routed experts for moe, else SwiGLU."""
+    xn = rmsnorm(lp["norm2"], x, cfg.norm_eps)
+    if cfg.family == "moe":
+        return x + moe_ffn(lp["moe"], xn, cfg, exec_cfg)
+    return x + swiglu(lp["ffn"], xn)
 
 
 def _final_logits(params: Params, x, cfg: ModelConfig):
@@ -187,7 +199,7 @@ def _mamba_layer(lp: dict, x, cfg: ModelConfig, exec_cfg: ExecConfig,
     h, (state, conv) = mamba2.mamba2_block(
         lp["mamba"], rmsnorm(lp["norm1"], x, cfg.norm_eps), cfg, state0, conv_prev,
         exec_cfg)
-    return _ffn(lp, x + h, cfg), (state, conv)
+    return _ffn(lp, x + h, cfg, exec_cfg), (state, conv)
 
 
 def _is_tap(cfg: ModelConfig, layer: int) -> bool:
@@ -244,24 +256,33 @@ def _recurrent_segment(params: Params, cache: Cache | None, x, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
+def _m_rope(cfg: ModelConfig) -> bool:
+    return cfg.attn is not None and cfg.attn.m_rope_sections is not None
+
+
 def prefill(params: Params, batch: dict, cfg: ModelConfig,
             exec_cfg: ExecConfig = DEFAULT_EXEC) -> tuple[torch.Tensor, Cache]:
-    """Prompt processing of batch {"tokens": (B, S)}: (logits at the last
-    position (B, V), cache; dense and hybrid K/V hold exactly S slots)."""
+    """Prompt processing of batch {"tokens": (B, S)} or {"embeds": (B, S, D)}
+    (plus {"positions": (3, B, S)} under M-RoPE): (logits at the last
+    position (B, V), cache; the K/V of the attention families and the hybrid
+    hold exactly S slots)."""
     _check_family(cfg)
-    tokens = batch["tokens"]
-    x = embed_tokens(params["tok"], tokens)
+    x = batch["embeds"] if "embeds" in batch else embed_tokens(params["tok"], batch["tokens"])
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        if _m_rope(cfg):
+            positions = positions.expand(3, b, s)
     pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
-    if cfg.family != "dense":
+    if cfg.family not in ATTENTION:
         x, cache = _recurrent_segment(params, None, x, cfg, exec_cfg, positions)
         return _final_logits(params, x[:, -1:], cfg)[:, 0], {**cache, "pos": pos}
     ks, vs = [], []
     for lp in params["layers"]:
         h, (k, v) = attention_block(lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps),
                                     positions, cfg, exec_cfg)
-        x = _ffn(lp, x + h, cfg)
+        x = _ffn(lp, x + h, cfg, exec_cfg)
         ks.append(k.transpose(1, 2))
         vs.append(v.transpose(1, 2))
     logits = _final_logits(params, x[:, -1:], cfg)[:, 0]
@@ -269,14 +290,20 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
 
 
 def serve_step(params: Params, cache: Cache, tokens, cfg: ModelConfig,
-               exec_cfg: ExecConfig = DEFAULT_EXEC) -> tuple[torch.Tensor, Cache]:
-    """One decode step for a batch: tokens (B,) -> (logits (B, V), cache with
-    the new K/V written at `pos`, the recurrent states stepped, and `pos`
-    advanced by 1)."""
+               exec_cfg: ExecConfig = DEFAULT_EXEC,
+               embeds=None) -> tuple[torch.Tensor, Cache]:
+    """One decode step for a batch: tokens (B,), or `embeds` (B, D) in their
+    place (the audio frontend) -> (logits (B, V), cache with the new K/V
+    written at `pos`, the recurrent states stepped, and `pos` advanced by
+    1). Under M-RoPE the three streams are all `pos`, as in the
+    reference."""
     _check_family(cfg)
     pos = cache["pos"]
-    x = embed_tokens(params["tok"], tokens)[:, None, :]            # (B, 1, D)
+    x = embeds if embeds is not None else embed_tokens(params["tok"], tokens)
+    x = x[:, None, :]                                              # (B, 1, D)
     prope = pos[:, None]
+    if _m_rope(cfg):
+        prope = prope.expand(3, *prope.shape)
     if cfg.family == "ssm":
         return _rwkv_step(params, cache, x[:, 0], cfg)
     if cfg.family == "hybrid":
@@ -285,7 +312,7 @@ def serve_step(params: Params, cache: Cache, tokens, cfg: ModelConfig,
         h, _, _ = attention_decode_block(
             lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps), cache["k"][l],
             cache["v"][l], pos, prope, cfg, exec_cfg)
-        x = _ffn(lp, x + h, cfg)
+        x = _ffn(lp, x + h, cfg, exec_cfg)
     logits = _final_logits(params, x, cfg)[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
 
@@ -319,7 +346,7 @@ def _hybrid_step(params: Params, cache: Cache, x, prope, cfg: ModelConfig,
         h, (st, cv) = mamba2.mamba2_step(
             lp["mamba"], rmsnorm(lp["norm1"], x, cfg.norm_eps), cache["ssm_state"][l],
             cache["conv_state"][l], cfg)
-        x = _ffn(lp, x + h, cfg)
+        x = _ffn(lp, x + h, cfg, exec_cfg)
         sts.append(st)
         cvs.append(cv)
         if _is_tap(cfg, l):
@@ -342,8 +369,9 @@ def serve_step_paged(params: Params, pages_k, pages_v, tables, lengths, tokens,
     (B, NB) int32 dump-padded block tables; lengths: (B,) cached tokens per
     sequence; tokens: (B,); max_len: batch-max length including the new
     token. Returns (logits (B, V), k_tok (L, B, KV, D), v_tok) - the step's
-    own K/V for `scatter_append`."""
-    _check_family(cfg, ("dense",))
+    own K/V for `scatter_append`. Dense and moe: a decode step feeds its B
+    tokens through the experts as one group either way."""
+    _check_family(cfg, ("dense", "moe"))
     x = embed_tokens(params["tok"], tokens)[:, None, :]            # (B, 1, D)
     prope = lengths[:, None]
     kts, vts = [], []
@@ -351,7 +379,7 @@ def serve_step_paged(params: Params, pages_k, pages_v, tables, lengths, tokens,
         h, kt, vt = attention_paged_decode_block(
             lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps), pages_k[l],
             pages_v[l], tables, lengths, prope, cfg, exec_cfg, max_len=max_len)
-        x = _ffn(lp, x + h, cfg)
+        x = _ffn(lp, x + h, cfg, exec_cfg)
         kts.append(kt[:, 0])
         vts.append(vt[:, 0])
     logits = _final_logits(params, x, cfg)[:, 0]
@@ -372,7 +400,7 @@ def prefill_chunk_paged(params: Params, pages_k, pages_v, table, ctx0: int,
         h, kt, vt = attention_paged_chunk_block(
             lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps), pages_k[l],
             pages_v[l], table, ctx0, cfg, exec_cfg)
-        x = _ffn(lp, x + h, cfg)
+        x = _ffn(lp, x + h, cfg, exec_cfg)
         kcs.append(kt[0].transpose(0, 1))
         vcs.append(vt[0].transpose(0, 1))
     logits = _final_logits(params, x[:, -1:], cfg)[:, 0]
@@ -388,13 +416,13 @@ def extend_step(params: Params, cache: Cache, tokens, cfg: ModelConfig,
     _check_family(cfg)
     pos = cache["pos"]
     x = embed_tokens(params["tok"], tokens)
-    if cfg.family != "dense":
+    if cfg.family not in ATTENTION:
         x, pieces = _recurrent_segment(params, cache, x, cfg, exec_cfg)
         return _final_logits(params, x, cfg), {**pieces, "pos": pos + tokens.shape[1]}
     for l, lp in enumerate(params["layers"]):
         h, _, _ = attention_extend_block(
             lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps), cache["k"][l],
             cache["v"][l], pos, cfg, exec_cfg)
-        x = _ffn(lp, x + h, cfg)
+        x = _ffn(lp, x + h, cfg, exec_cfg)
     logits = _final_logits(params, x, cfg)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + tokens.shape[1]}

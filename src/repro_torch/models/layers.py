@@ -1,5 +1,5 @@
-"""Shared building blocks of the dense decoder: RMSNorm, RoPE, SwiGLU,
-embedding and LM head, and their torch init.
+"""Shared building blocks of the decoders: RMSNorm, RoPE and M-RoPE, SwiGLU,
+the routed mixture of experts, embedding and LM head, and their torch init.
 
 Plain functions over parameter dicts of tensors, as in the reference
 (src/repro/models/layers.py). Activations flow in `cfg.dtype`; reductions
@@ -15,7 +15,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, MoEConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,11 +33,15 @@ class ExecConfig:
     launches the kernel, a CPU tensor takes the plain version) or "torch"
     (the plain version on either device, which `chip_smoke.py` uses to hold
     the kernel path against it on the card).
+
+    moe_group_size is the reference's: tokens per MoE dispatch group. Its
+    sharding knobs (carry_spec, ep_axes) have no counterpart on one card.
     """
 
     q_block: int = 1024          # attention query-block length (plain path)
     use_kernels: bool = True
     impl: str = "auto"
+    moe_group_size: int = 4096   # tokens per MoE dispatch group
 
 
 DEFAULT_EXEC = ExecConfig()
@@ -80,13 +84,26 @@ def rmsnorm(g, x, eps: float = 1e-5):
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
-def rope_angles(positions, head_dim: int, theta: float):
-    """positions (..., S) int -> (sin, cos) of shape (..., S, head_dim/2), fp32."""
+def rope_angles(positions, head_dim: int, theta: float, m_rope_sections=None):
+    """positions (..., S) int, or (3, ..., S) for M-RoPE -> (sin, cos) of
+    shape (..., S, head_dim/2), fp32.
+
+    For M-RoPE (qwen2-vl) the leading 3 are the temporal, height and width
+    streams, and the rotary frequencies split into the three sections
+    (t, h, w): frequency i turns by the position of its section's stream."""
     half = head_dim // 2
-    exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    inv_freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                      device=positions.device), exps)
-    ang = positions.float()[..., None] * inv_freq
+    dev = positions.device
+    exps = -torch.arange(0, half, dtype=torch.float32, device=dev) / half
+    inv_freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=dev), exps)
+    if m_rope_sections is None:
+        ang = positions.float()[..., None] * inv_freq
+        return torch.sin(ang), torch.cos(ang)
+    t, h, w = m_rope_sections
+    assert t + h + w == half, f"m_rope sections {m_rope_sections} != {half}"
+    freq = torch.arange(half, device=dev)
+    sec = (freq >= t).long() + (freq >= t + h).long()               # stream of each freq
+    pos = torch.movedim(positions, 0, -1).float()                  # (..., S, 3)
+    ang = pos[..., sec] * inv_freq                                 # (..., S, half)
     return torch.sin(ang), torch.cos(ang)
 
 
@@ -115,6 +132,87 @@ def init_swiglu(gen: torch.Generator, d: int, f: int, dtype) -> dict:
 
 def swiglu(p: dict, x):
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts: routed top-k plus optional shared experts
+#
+# The reference's capacity dispatch (src/repro/models/layers.py): tokens go
+# in groups of `moe_group_size`; each (token, k) unit takes the slot
+# expert * C + rank, its rank being its arrival order within its expert;
+# units ranked C or later are dropped into an overflow slot. The experts run
+# as three batched products over (G, E, C, D). Every expert gets C slots,
+# used or not, so a step reads every expert's weights.
+# ---------------------------------------------------------------------------
+def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    m, d, dtype = cfg.moe, cfg.d_model, torch_dtype(cfg)
+    e, f = m.num_experts, m.d_ff_expert
+    p = {"router": normal(gen, (d, e), d ** -0.5, torch.float32),
+         "w_gate": normal(gen, (e, d, f), d ** -0.5, dtype),
+         "w_up": normal(gen, (e, d, f), d ** -0.5, dtype),
+         "w_down": normal(gen, (e, f, d), f ** -0.5, dtype)}
+    if m.num_shared_experts > 0:
+        p["shared"] = init_swiglu(gen, d, m.d_ff_shared, dtype)
+    return p
+
+
+def _moe_capacity(tokens_per_group: int, m: MoEConfig) -> int:
+    c = int(tokens_per_group * m.top_k * m.capacity_factor / m.num_experts)
+    return max(c, m.top_k)
+
+
+def moe_ffn(p: dict, x, cfg: ModelConfig, exec_cfg: ExecConfig = DEFAULT_EXEC):
+    """x (B, S, D) -> (B, S, D), the reference's `moe_ffn` op for op. Its
+    sharding anchors (carry_spec, ep_axes) pin buffers to mesh axes and have
+    no counterpart on one card: they are left out."""
+    m = cfg.moe
+    b, s, d = x.shape
+    total = b * s
+    tg = min(exec_cfg.moe_group_size, total)
+    assert total % tg == 0, f"tokens {total} not divisible by group {tg}"
+    g, e, dev = total // tg, m.num_experts, x.device
+    xg = x.reshape(g, tg, d)
+
+    # routing: the router product in the activation dtype, upcast after
+    logits = (xg @ p["router"].to(xg.dtype)).float()               # (G, Tg, E)
+    gate, expert_idx = torch.topk(torch.softmax(logits, dim=-1), m.top_k, dim=-1)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)       # renormalise
+
+    tk = tg * m.top_k
+    flat_e = expert_idx.reshape(g, tk)
+    cap = _moe_capacity(tg, m)
+    # rank of each (token, k) unit within its expert, by a stable argsort
+    sort_idx = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, -1, sort_idx)
+    counts = torch.zeros(g, e, dtype=torch.long, device=dev).scatter_add_(
+        -1, flat_e, torch.ones_like(flat_e))
+    offsets = counts.cumsum(-1) - counts                           # exclusive
+    rank_sorted = torch.arange(tk, device=dev)[None, :] - torch.gather(offsets, -1, sorted_e)
+    rank = torch.empty_like(rank_sorted).scatter_(-1, sort_idx, rank_sorted)
+    keep = rank < cap                                              # capacity drop
+    slot = torch.where(keep, flat_e * cap + rank, e * cap)         # overflow slot
+
+    # dispatch: scatter the units into (G, E*C + 1, D); the overflow row,
+    # which dropped units may share, is cut off before the experts
+    xu = xg[:, torch.arange(tk, device=dev) // m.top_k]            # (G, TK, D)
+    rows = torch.arange(g, device=dev)[:, None]
+    buf = torch.zeros(g, e * cap + 1, d, dtype=x.dtype, device=dev)
+    buf[rows, slot] = xu
+    ein = buf[:, :e * cap].reshape(g, e, cap, d)
+
+    hgate = torch.einsum("gecd,edf->gecf", ein, p["w_gate"])
+    hup = torch.einsum("gecd,edf->gecf", ein, p["w_up"])
+    hout = torch.einsum("gecf,efd->gecd", F.silu(hgate) * hup, p["w_down"])
+    hflat = torch.cat([hout.reshape(g, e * cap, d),
+                       torch.zeros(g, 1, d, dtype=hout.dtype, device=dev)], dim=1)
+
+    # combine: each unit's expert output, weighted by gate * keep
+    out_u = hflat[rows, slot]                                      # (G, TK, D)
+    w = (gate.reshape(g, tk) * keep).to(out_u.dtype)
+    out = (out_u * w[..., None]).reshape(g, tg, m.top_k, d).sum(dim=2)
+    if m.num_shared_experts > 0:
+        out = out + swiglu(p["shared"], xg)
+    return out.reshape(b, s, d)
 
 
 # ---------------------------------------------------------------------------

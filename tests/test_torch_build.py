@@ -34,7 +34,9 @@ def _clean_logs() -> dict:
         "flash_attention": _entry("flash_mma_kernel", "Li128E"),
         "paged_prefill_attention": _entry("paged_prefill_mma_kernel", "Li128E"),
         "decode_attention": _entry("decode_kernel", f"{BF16}Li128ELi1E")
-        + _entry("decode_kernel", f"{BF16}Li80ELi1E"),
+        + _entry("decode_kernel", f"{BF16}Li80ELi1E")
+        + _entry("decode_kernel", f"{BF16}Li128ELi8E")
+        + _entry("decode_kernel", f"{BF16}Li64ELi1E"),
         "paged_decode_attention": _entry("paged_decode_kernel", f"{BF16}Li128ELi1E")
         + _entry("paged_decode_kernel", f"{BF16}Li80ELi1E"),
         "rwkv6_wkv": _entry("wkv_mma_kernel", "Li64E"),

@@ -191,6 +191,62 @@ def test_decodes_at_path_shapes(gen, b, kv, keys, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv,g,d", [(8, 8, 128), (24, 1, 64)], ids=["qwen2-vl", "musicgen"])
+def test_decodes_at_family_shapes(gen, kv, g, d, dtype):
+    """qwen2-vl-72b's 8 query heads a kv head (one block holds all 8 rows)
+    and musicgen-medium's head_dim 64, at the families' decode: 4 sequences
+    of 451-466 cached tokens."""
+    lengths = [466, 460, 456, 451]
+    pos = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = _rand(gen, 4, 1, kv * g, d, dtype=dtype)
+    kc, vc = _rand(gen, 4, kv, 471, d, dtype=dtype), _rand(gen, 4, kv, 471, d, dtype=dtype)
+    before = dec.KERNEL.launches
+    got = ops.decode_attention(q, kc, vc, pos)
+    assert dec.KERNEL.launches == before + 1
+    _close(got, ops.decode_attention(q, kc, vc, pos, impl="torch"), dtype)
+    args, _ = _paged_case(gen, lengths, kv, g, d, 16, dtype)
+    _close(ops.paged_decode_attention(*args), ops.paged_decode_attention(*args, impl="torch"),
+           dtype)
+
+
+def test_moe_ffn_on_the_card_matches_fp32_on_the_cpu(gen):
+    """One MoE layer at qwen2-moe-a2.7b's widths (60 experts top-4, d_ff
+    1408, shared 5632), bf16 on the card against fp32 on the CPU from the
+    same bf16 weights and input. capacity_factor = E, so no unit drops: a
+    routing choice that bf16 flips then moves its own token only, and the
+    tokens routed alike on both sides are held to the bf16 limit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import init_moe, moe_ffn
+
+    cfg = get_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p = init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn(2, 8, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    x = x.to(torch.bfloat16)
+
+    def tree(p, fn):
+        return {k: tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in p.items()}
+
+    def routes(p, x):
+        logits = (x.reshape(-1, x.shape[-1]) @ p["router"].to(x.dtype)).float()
+        top = torch.topk(logits.softmax(-1), cfg.moe.top_k, dim=-1).indices
+        return top.sort(-1).values.cpu()
+
+    pc = tree(p, lambda t: t.cuda())
+    p32 = tree(p, lambda t: t.float())
+    got = moe_ffn(pc, x.cuda(), cfg).float().cpu().reshape(-1, cfg.d_model)
+    want = moe_ffn(p32, x.float(), cfg32).reshape(-1, cfg.d_model)
+    alike = (routes(pc, x.cuda()) == routes(p32, x.float())).all(-1)
+    assert alike.float().mean() >= 0.75, alike
+    err = (got[alike] - want[alike]).abs().max() / want[alike].abs().max()
+    assert err < TOL[torch.bfloat16], float(err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_decode_shared_pages(gen, dtype):
     """Sequences that adopt a donor's pages (refcount > 1) read them through
     their own tables; the pool is poisoned everywhere else."""

@@ -18,7 +18,7 @@ import torch
 from repro.configs import get_reduced_config as ref_config
 from repro.models import backbone as rbb
 from repro.serving.kv_cache import PagedKVPool as RefPool
-from repro_torch.configs import get_reduced_config
+from repro_torch.configs import _ARCH_MODULES, get_reduced_config
 from repro_torch.models import backbone
 from repro_torch.models.layers import ExecConfig
 from repro_torch.serving.kv_cache import PagedKVPool
@@ -138,10 +138,15 @@ def test_prefill_chunk_paged_matches_reference(model, ctx0):
     assert _rel_err(gk, wk) < tol and _rel_err(gv, wv) < tol
 
 
-def test_other_families_name_their_roadmap_item():
-    cfg = get_reduced_config("qwen2-moe-a2.7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        backbone.init_params(torch.Generator(), cfg)
+@pytest.mark.parametrize("arch", sorted(_ARCH_MODULES))
+def test_every_registry_arch_prefills(arch):
+    """Every architecture of the registry, all six families, inits from a
+    seeded generator on the CPU (reduced) and prefills to finite logits."""
+    cfg = get_reduced_config(arch)
+    params = backbone.init_params(torch.Generator().manual_seed(0), cfg)
+    logits, cache = backbone.prefill(params, {"tokens": torch.arange(1, 6)[None]}, cfg)
+    assert logits.shape == (1, cfg.vocab_size) and torch.isfinite(logits.float()).all()
+    assert cache["pos"].tolist() == [5]
 
 
 def test_init_params_is_seeded():
