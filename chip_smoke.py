@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA H100 and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+H100 and check them.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --tree DIR   # the same phases over the port's package
@@ -109,6 +110,33 @@ no result:
            replicas x 100k sharegpt requests, which must finish every
            request with exactly its output tokens. Under --tree, a tree
            without the planning stack prints "planning: not in this tree".
+  training the port's training path, which reaches no kernel (the reference
+           trains with use_kernels=False, and no kernel has a backward): the
+           kernels' front door must refuse a CUDA input that requires a
+           gradient. llama-7b at full width, 12 of its 32 layers (2.69 B
+           params; bf16 weights from the port's seeded init, batches from
+           data.synthetic_batch, 4 x 1024 tokens): (a) step 1's loss and
+           gradient norm against the same model upcast to fp32, beside the
+           bf16 noise floor (query rows in blocks of half the sequence);
+           (b) microbatches=2 against 1; (c) six AdamW train_steps over one
+           batch must lower the loss; (d) peak device memory within the
+           reckoning of 16 B a param plus an allowance; (e) step ms (median
+           of steps 2-6), tokens/s, model-FLOPs share of 989e12 and the
+           device-busy share of one profiled step. Then one train_step each,
+           with its loss and gradient norm against an fp32 copy, of
+           qwen2-moe-a2.7b (2 of 24 layers, 60 experts), rwkv6-7b (2 layers),
+           zamba2-2.7b (6 layers, one shared-attention tap) and
+           musicgen-medium (all 48, on frame embeddings); qwen2-vl-72b is
+           left to the CPU tests (its embedding and head alone are 2.49 B
+           params, ~40 GB of training state). Through a one-rank nccl group:
+           make_sharded_train_step on a (1, 1) mesh against train_step, the
+           compressed step, and `launch.train --arch llama-300m --full` (12
+           steps, a checkpoint every 6 under build/train_ckpt, removed after)
+           whose step-6 checkpoint a second trainer restores: it must print
+           the launcher's losses for steps 7-12, and its final state is
+           compared with the launcher's bit for bit. Every kernel's launch
+           count must not move over the phase. Under --tree, a tree without
+           training prints "training: not in this tree".
 After all path phases every kernel must have launched on a path.
 
 The engine's modelled clock, energy and carbon are the cost model's figures
@@ -1763,6 +1791,399 @@ def phase_planning(tree: pathlib.Path) -> None:
           + f"; total {sum(secs.values()):.2f}", flush=True)
 
 
+# --------------------------------------------------------------- training
+# llama-7b at full width (d_model 4096, 32 heads of 128, d_ff 11008, vocab
+# 32000, untied head) with its depth cut to TRAIN_LAYERS of 32 so that the
+# AdamW state (16 B a param: bf16 weights and gradients, fp32 master, m, v)
+# fits one card with room for activations (PERF.md, PR 18: 2.69 B params,
+# 43.1 GB); TRAIN_BATCH x TRAIN_SEQ tokens a step; TRAIN_STEPS steps on one
+# batch at TRAIN_LR
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "llama-7b", 12, 4, 1024
+TRAIN_STEPS, TRAIN_LR = 6, 1e-4
+# the other families, one step each at 2 x 1024 tokens: (arch, layers; None
+# for full depth). qwen2-vl-72b is left to the CPU tests: its embedding and
+# head alone are 2.49 B params, ~40 GB of training state
+TRAIN_FAMILIES = (("qwen2-moe-a2.7b", 2), ("rwkv6-7b", 2), ("zamba2-2.7b", 6),
+                  ("musicgen-medium", None))
+# the restart check: the launcher's defaults (8 x 64 tokens, lr 1e-3)
+TRAIN_CKPT_ARCH, TRAIN_CKPT_STEPS, TRAIN_CKPT_EVERY = "llama-300m", 12, 6
+#   the restarted run's losses against the launcher's printed ones (4
+#   decimals), relative, where they are not identical to the printed
+#   digits: the first probe, whose embedding gradient still summed with
+#   atomics, read 5.7e-5 by step 12 (PERF.md, PR 18)
+TOL_RESTART = 2e-4
+# activations and the update's temporaries beside the 16 B a param: the
+# remat's layer inputs, one layer recomputed (fp32 scores of a query block
+# and their softmax), the fp32 logits and their gradient (PERF.md, PR 18)
+TRAIN_ACT_ALLOWANCE = 12 * 2**30
+#   bf16 training against the same model upcast to fp32 at step 1 (relative
+#   loss and gradient-norm difference): largest readings 9.8e-5 (loss,
+#   qwen2-moe) and 7.4e-4 (gradient norm, musicgen-medium) over the five
+#   models (PERF.md, PR 18); limits ~3x. The phase also reads a noise floor,
+#   bf16 against itself with its query rows in blocks of half the sequence:
+#   0 for the loss (each query row's scores are the same products either
+#   way) and 0 to 8.6e-5 for the gradient norm (the backward products'
+#   sums in another order)
+TOL_TRAIN = {"loss": 3e-4, "grad_norm": 2.5e-3}
+#   microbatches=2 against 1, both bf16: readings 8.8e-8 (loss) and 1.9e-6
+#   (gradient norm: bf16 gradients summed in fp32 against one pass)
+TOL_MICRO = {"loss": 5e-7, "grad_norm": 1e-5}
+#   the sharded step on a (1, 1) mesh against train_step: the same math but
+#   the vocab-parallel loss's own fp32 formula; loss relative, params in
+#   units of lr after one step (bf16 gradients can round the other way)
+#   no element off by more than 3 lr (a near-zero gradient that rounds to the
+#   other sign turns Adam's first step), at most 1% off by more than 0.1 lr
+#   (reading 3.1e-3 with 2.2 lr at most; PERF.md, PR 18)
+TOL_SHARDED = {"loss": 1e-4, "params_lr": 3.0, "off_share": 1e-2}
+
+
+def phase_training(checks, card):
+    """Training on the card: llama-7b's AdamW steps at full width, one step
+    of each other family, the sharded and compressed steps through a
+    one-rank nccl group, and a checkpoint restart through the launcher. No
+    kernel may launch: the reference trains with use_kernels=False."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+
+    t0 = time.perf_counter()
+    before = {n: ck.kernel.launches for n, ck in checks.items()}
+    # the kernels have no backward: the front door refuses a grad input
+    q = torch.randn(1, 16, 4, 128, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    try:
+        kops.flash_attention(q, q, q)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        print(f"training: a CUDA input that requires a gradient is refused: {e}", flush=True)
+    else:
+        raise RuntimeError("flash_attention took an input that requires a gradient")
+    _train_dense(card)
+    torch.cuda.empty_cache()
+    for arch, layers in TRAIN_FAMILIES:
+        _train_family(arch, layers)
+        torch.cuda.empty_cache()
+    _train_distributed(card)
+    torch.cuda.empty_cache()
+    used = {n: ck.kernel.launches - before[n] for n, ck in checks.items()}
+    if any(used.values()):
+        raise RuntimeError(f"training launched kernels: {used}")
+    print(f"training: kernel launches over the phase {used}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _batch(cfg, b, s, step=0):
+    from repro_torch.training.data import synthetic_batch, to_device
+
+    return to_device(synthetic_batch(cfg, b, s, 0, step), "cuda")
+
+
+def _bf16_vs_fp32(params, batch, cfg, what):
+    """Loss and gradient norm of bf16 params against the same model upcast
+    to fp32, beside the bf16 noise floor (query rows in blocks of half the
+    sequence); before any optimizer state exists. Returns the bf16 pair."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.layers import TRAIN_EXEC
+    from repro_torch.training.optimizer import global_norm, tree_map
+    from repro_torch.training.train_step import loss_and_grads
+
+    def run(p, c, ex, b=batch):
+        loss, g = loss_and_grads(p, b, c, ex)
+        out = (float(loss), float(global_norm(g)))
+        del g
+        return out
+
+    s = next(iter(batch.values())).shape[-1]
+    l16, n16 = run(params, cfg, TRAIN_EXEC)
+    lf, nf = run(params, cfg, dataclasses.replace(TRAIN_EXEC, q_block=max(s // 2, 1)))
+    p32 = tree_map(lambda t: t.float(), params)
+    b32 = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
+    l32, n32 = run(p32, dataclasses.replace(cfg, dtype="float32"), TRAIN_EXEC, b32)
+    del p32, b32
+    torch.cuda.empty_cache()
+    err = {"loss": abs(l16 - l32) / abs(l32), "grad_norm": abs(n16 - n32) / n32}
+    floor = {"loss": abs(lf - l16) / abs(l16), "grad_norm": abs(nf - n16) / n16}
+    print(f"{what}: bf16 loss {l16:.6f} gnorm {n16:.6f}, fp32 loss {l32:.6f} gnorm "
+          f"{n32:.6f}: rel {err['loss']:.3e} / {err['grad_norm']:.3e} (tol {TOL_TRAIN['loss']:g}"
+          f" / {TOL_TRAIN['grad_norm']:g}); noise floor (bf16, query blocks of {s // 2}) "
+          f"{floor['loss']:.3e} / {floor['grad_norm']:.3e}", flush=True)
+    if not all(x == x and abs(x) != float("inf") for x in (l16, n16)):
+        raise RuntimeError(f"{what}: non-finite loss or gradient norm")
+    if any(err[k] > TOL_TRAIN[k] for k in err):
+        raise RuntimeError(f"{what}: bf16 training disagrees with fp32: {err}")
+    return l16, n16
+
+
+def _train_dense(card):
+    import dataclasses
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import backbone
+    from repro_torch.models.layers import TRAIN_EXEC
+    from repro_torch.training.optimizer import AdamWConfig, global_norm, init_opt_state
+    from repro_torch.training.train_step import loss_and_grads, train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    n = cfg.param_count()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    state_bytes = 16 * n
+    print(f"training {TRAIN_ARCH} at full width, {TRAIN_LAYERS} of 32 layers: {n / 1e9:.3f} B "
+          f"params; reckoning 16 B a param = {state_bytes / 2**30:.2f} GiB of state + "
+          f"{TRAIN_ACT_ALLOWANCE / 2**30:.0f} GiB for activations and the update = "
+          f"{(state_bytes + TRAIN_ACT_ALLOWANCE) / 2**30:.2f} GiB; {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens a step; card {card}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = backbone.init_params(gen, cfg)
+    batch = _batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    # (a) bf16 against fp32 at step 1, before any optimizer state
+    l1, n1 = _bf16_vs_fp32(params, batch, cfg, f"{TRAIN_ARCH} step 1")
+    peak_a = torch.cuda.max_memory_allocated()
+    # (b) two microbatches against one
+    lm, g = loss_and_grads(params, batch, cfg, TRAIN_EXEC, microbatches=2)
+    lm, nm = float(lm), float(global_norm(g))
+    del g
+    err = {"loss": abs(lm - l1) / abs(l1), "grad_norm": abs(nm - n1) / n1}
+    print(f"{TRAIN_ARCH} microbatches=2 against 1: loss {lm:.6f} vs {l1:.6f}, gnorm {nm:.6f} "
+          f"vs {n1:.6f}: rel {err['loss']:.3e} / {err['grad_norm']:.3e} (tol "
+          f"{TOL_MICRO['loss']:g} / {TOL_MICRO['grad_norm']:g})", flush=True)
+    if any(err[k] > TOL_MICRO[k] for k in err):
+        raise RuntimeError(f"microbatches=2 disagree with 1: {err}")
+    torch.cuda.empty_cache()
+    # (c) TRAIN_STEPS AdamW steps on the one batch
+    torch.cuda.reset_peak_memory_stats()
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1)
+    opt = init_opt_state(params)
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = train_step(params, opt, batch, cfg, opt_cfg, TRAIN_EXEC)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+    print(f"{TRAIN_ARCH} {TRAIN_STEPS} AdamW steps (lr {TRAIN_LR:g}) on one batch: losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; step s {', '.join(f'{x:.4f}' for x in secs)}",
+          flush=True)
+    if not losses[-1] < losses[0] or not all(map(lambda x: x == x, losses)):
+        raise RuntimeError(f"the loss did not fall: {losses}")
+    # (d) peak memory within the reckoning
+    peak = torch.cuda.max_memory_allocated()
+    bound = state_bytes + TRAIN_ACT_ALLOWANCE
+    print(f"{TRAIN_ARCH} peak device memory {peak / 2**30:.2f} GiB over the steps "
+          f"(the bf16-vs-fp32 check {peak_a / 2**30:.2f} GiB) against the reckoning "
+          f"{bound / 2**30:.2f} GiB", flush=True)
+    if peak > bound:
+        raise RuntimeError(f"peak {peak / 2**30:.2f} GiB beyond the reckoning")
+    # (e) step time, tokens/s, model-FLOPs share, device-busy share
+    step_s = statistics.median(secs[1:])
+    n_matmul = n - cfg.vocab_size * cfg.d_model        # all but the embedding table
+    model_flops = 6 * n_matmul * tokens + 12 * cfg.num_layers * TRAIN_SEQ * cfg.d_model * tokens
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = train_step(params, opt, batch, cfg, opt_cfg, TRAIN_EXEC)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in on_card)
+    # the step's two parts: loss and gradients, then the bf16 cast and AdamW
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, g = loss_and_grads(params, batch, cfg, TRAIN_EXEC)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t
+    del g
+    print(f"{TRAIN_ARCH} train step parts: loss and gradients {grad_s * 1e3:.1f} ms, the "
+          f"update (bf16 cast, AdamW, params copied back) ~{(step_s - grad_s) * 1e3:.1f} ms",
+          flush=True)
+    print(f"{TRAIN_ARCH} train step: {step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}, "
+          f"host clock around synchronised steps), {tokens / step_s:.0f} tokens/s, model "
+          f"FLOPs {model_flops:.3e} a step = {model_flops / step_s / BF16_FLOPS:.1%} of "
+          f"989e12; profiled step: wall {wall:.3f} s, device busy {busy_us / 1e6:.3f} s = "
+          f"{busy_us / 1e6 / wall:.1%}; card {card}", flush=True)
+    for e in sorted(on_card, key=lambda e: -e.device_time_total)[:8]:
+        print(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}", flush=True)
+    del params, opt, batch, m
+
+
+def _train_family(arch, layers):
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import backbone
+    from repro_torch.models.layers import TRAIN_EXEC
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import train_step
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = backbone.init_params(gen, cfg)
+    batch = _batch(cfg, 2, 1024)
+    what = f"{arch} ({cfg.family}, {cfg.num_layers} layers, {cfg.param_count() / 1e9:.2f} B)"
+    l1, _ = _bf16_vs_fp32(params, batch, cfg, what)
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params, opt, m = train_step(params, opt, batch, cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=1),
+                                TRAIN_EXEC)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    if float(m["loss"]) != float(m["loss"]) or abs(float(m["loss"]) - l1) > 1e-3 * abs(l1):
+        raise RuntimeError(f"{what}: train_step loss {float(m['loss'])} vs {l1}")
+    print(f"{what}: one train_step of 2 x 1024 tokens in {secs:.3f} s, gnorm "
+          f"{float(m['grad_norm']):.4f}", flush=True)
+    del params, opt, batch, m
+
+
+def _train_distributed(card):
+    """The sharded and compressed steps through a one-rank nccl group, and
+    the launcher's checkpoints restored by a second trainer."""
+    import copy
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import backbone
+    from repro_torch.models.layers import TRAIN_EXEC
+    from repro_torch.training import train_step as ts
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state, tree_leaves
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        cfg = get_config(TRAIN_CKPT_ARCH)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = backbone.init_params(gen, cfg)
+        batch = _batch(cfg, 8, 256)
+        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        sp = ts.shard_params(copy.deepcopy(params), mesh)
+        so = ts.shard_opt_state(init_opt_state(params), params, mesh)
+        sharded = ts.make_sharded_train_step(mesh, cfg, opt_cfg, TRAIN_EXEC)
+        times = {}
+        for name, fn in (("train_step", lambda: ts.train_step(params, init_opt_state(params),
+                                                             batch, cfg, opt_cfg, TRAIN_EXEC)),
+                         ("sharded (1, 1)", lambda: sharded(sp, so, ts.shard_batch(batch, mesh)))):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t, out)
+        (_, (p1, _, m1)), (_, (p2, _, m2)) = times["train_step"], times["sharded (1, 1)"]
+        rel = abs(float(m2["loss"]) - float(m1["loss"])) / float(m1["loss"])
+        d = [(a.float() - b.full_tensor().float()).abs() / opt_cfg.lr
+             for a, b in zip(tree_leaves(p1), tree_leaves(p2))]
+        diff = max(float(x.max()) for x in d)
+        off = sum(int((x > 0.1).sum()) for x in d) / sum(x.numel() for x in d)
+        print(f"sharded step on a (1, 1) nccl mesh against train_step ({TRAIN_CKPT_ARCH}, 8 x "
+              f"256): loss rel {rel:.3e} (tol {TOL_SHARDED['loss']:g}), params max diff "
+              f"{diff:.3f} lr (tol {TOL_SHARDED['params_lr']:g}), {off:.2e} of them off by "
+              f"more than 0.1 lr (tol {TOL_SHARDED['off_share']:g}); wall "
+              f"{times['train_step'][0]:.3f} s and {times['sharded (1, 1)'][0]:.3f} s (first "
+              f"calls)", flush=True)
+        if rel > TOL_SHARDED["loss"] or diff > TOL_SHARDED["params_lr"] or \
+                off > TOL_SHARDED["off_share"]:
+            raise RuntimeError("the sharded step disagrees with train_step")
+        del sp, so, p1, p2, times
+        step = ts.make_compressed_train_step(cfg, opt_cfg, TRAIN_EXEC)
+        pc = copy.deepcopy(params)
+        pc, _, _, mc = step(pc, init_opt_state(pc), ts.init_residual(pc), batch)
+        if float(mc["loss"]) != float(mc["loss"]):
+            raise RuntimeError("the compressed step gave a NaN loss")
+        print(f"compressed step on one nccl rank: loss {float(mc['loss']):.6f} gnorm "
+              f"{float(mc['grad_norm']):.4f}", flush=True)
+        del params, pc, batch
+        torch.cuda.empty_cache()
+        _train_restart(cfg)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_restart(cfg):
+    """launch.train runs TRAIN_CKPT_STEPS steps with a checkpoint every
+    TRAIN_CKPT_EVERY; a second trainer restores the middle one and must
+    reproduce the rest: the printed losses and the final state."""
+    import os
+    import shutil
+
+    import torch
+
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.elastic import ElasticTrainer
+    from repro_torch.training.optimizer import AdamWConfig, tree_leaves
+
+    src = pathlib.Path(sys.modules["repro_torch"].__file__).resolve().parents[1]
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    run_dir, last_dir = root / "run", root / "last"
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_CKPT_ARCH, "--full",
+         "--steps", str(TRAIN_CKPT_STEPS), "--ckpt-every", str(TRAIN_CKPT_EVERY),
+         "--ckpt-dir", str(run_dir)],
+        env=dict(os.environ, PYTHONPATH=str(src)), capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    if out.returncode != 0:
+        raise RuntimeError(f"launch.train failed:\n{out.stdout}\n{out.stderr[-3000:]}")
+    lines = out.stdout.splitlines()
+    print("\n".join(f"  | {l}" for l in lines), flush=True)
+    printed = [l.split()[3] for l in lines if l.startswith("  step")]
+    size = sum(f.stat().st_size for f in (run_dir / f"step_{TRAIN_CKPT_EVERY:08d}").iterdir())
+    print(f"launch.train {TRAIN_CKPT_ARCH} --full: {TRAIN_CKPT_STEPS} steps and two "
+          f"checkpoints of {size / 1e9:.2f} GB in {wall:.1f} s", flush=True)
+    last = f"step_{TRAIN_CKPT_STEPS:08d}"
+    last_dir.mkdir(parents=True)
+    shutil.move(str(run_dir / last), str(last_dir / last))
+    t = time.perf_counter()
+    tr = ElasticTrainer(cfg, batch=8, seq=64, ckpt_dir=str(run_dir), model_axis=2,
+                        opt_cfg=AdamWConfig(lr=1e-3), ckpt_every=TRAIN_CKPT_EVERY, seed=0)
+    restored = tr.step
+    losses = tr.run(TRAIN_CKPT_STEPS - restored)
+    wall = time.perf_counter() - t
+    again = [f"{x:.4f}" for x in losses]
+    _, want = ckpt.restore_latest(str(last_dir), {"params": tr.params, "opt": tr.opt})
+    diff = max(float((a.full_tensor().float() - b.full_tensor().float()).abs().max())
+               for a, b in zip(tree_leaves(tr.params), tree_leaves(want["params"])))
+    same = all(torch.equal(a.full_tensor(), b.full_tensor())
+               for a, b in zip(tree_leaves([tr.params, tr.opt["m"], tr.opt["v"], tr.opt["master"]]),
+                               tree_leaves([want["params"], want["opt"]["m"], want["opt"]["v"],
+                                            want["opt"]["master"]])))
+    print(f"restart: a second trainer restored step {restored} and ran steps "
+          f"{restored + 1}-{tr.step} in {wall:.1f} s: losses {', '.join(again)} against the "
+          f"launcher's {', '.join(printed[restored:])}; final params and state "
+          f"{'bit-identical' if same else f'differ, params by {diff:.3e} at most'}", flush=True)
+    worst = max(abs(x - float(w)) / float(w) for x, w in zip(losses, printed[restored:]))
+    print(f"restart: losses {'identical to the printed digits' if again == printed[restored:] else 'differ'}"
+          f", largest relative difference {worst:.3e} (tol {TOL_RESTART:g}, beside the "
+          f"printed digits' 5e-5)", flush=True)
+    if restored != TRAIN_CKPT_EVERY or len(again) != len(printed) - restored or \
+            worst > TOL_RESTART:
+        raise RuntimeError(f"the restart did not reproduce steps {restored + 1}-"
+                           f"{TRAIN_CKPT_STEPS}: {again} vs {printed[restored:]}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def _print_port_kernels(on_card) -> None:
     """The profile's rows of the port's own kernels (the `*_kernel`
     functions of the imported package's csrc/, each in its source's
@@ -1875,6 +2296,11 @@ def main(argv: list[str]) -> int:
         print("planning: not in this tree", flush=True)
     else:
         phase_planning(other or ROOT)
+    torch.cuda.empty_cache()
+    if other is not None and importlib.util.find_spec("repro_torch.training") is None:
+        print("training: not in this tree", flush=True)
+    else:
+        phase_training(checks, card)
     idle = [n for n, ck in checks.items() if ck.path_launches == 0]
     if idle:
         raise RuntimeError(f"kernels never launched on a path: {idle}")

@@ -22,7 +22,8 @@ kernel guarantees.
 `ssd_chunked_math` is the reference's chunked form (src/repro/models/
 mamba2.py `ssd_chunked`) op for op: its intra-chunk tensors stay in the
 dtype of `xh`. The model's use_kernels=False path runs it in the activation
-dtype (on the CPU only); the kernel's plain version `ssd_plain` runs it on
+dtype (training on either device, serving on the CPU only); the kernel's
+plain version `ssd_plain` runs it on
 fp32 copies of the inputs, the function the kernel computes.
 """
 from __future__ import annotations

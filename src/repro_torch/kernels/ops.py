@@ -12,6 +12,11 @@ Dispatch, by `impl`:
           it to hold the kernels against it on the card.
 There is no silent fallback: the plain version runs on the card only when
 asked for by name.
+
+No kernel has a backward pass, as no TPU kernel of the reference has one: the
+reference trains with use_kernels=False. So every entry here refuses an input
+that requires a gradient while autograd records, on either device and under
+either impl, rather than hand autograd an output it cannot differentiate.
 """
 from __future__ import annotations
 
@@ -26,6 +31,14 @@ from repro_torch.kernels import rwkv6_wkv as _wkv
 IMPLS = ("auto", "torch")
 
 
+def _no_grad(what: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires a gradient, and the kernels have no backward "
+            "pass (the reference has no backward kernel either); train with "
+            "use_kernels=False (models.layers.TRAIN_EXEC)")
+
+
 def _plain(impl: str) -> bool:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}: {impl!r}")
@@ -34,6 +47,7 @@ def _plain(impl: str) -> bool:
 
 def flash_attention(q, k, v, causal: bool = True, impl: str = "auto"):
     """q: (B, S, H, D), k/v: (B, S, KV, D) -> (B, S, H, D)."""
+    _no_grad("flash_attention", q, k, v)
     if _plain(impl):
         return _flash.flash_attention_plain(q, k, v, causal)
     return _flash.flash_attention(q, k, v, causal)
@@ -41,6 +55,7 @@ def flash_attention(q, k, v, causal: bool = True, impl: str = "auto"):
 
 def decode_attention(q, k_cache, v_cache, pos, impl: str = "auto"):
     """q: (B, 1, H, D), caches: (B, KV, S, D), pos: (B,) -> (B, 1, H, D)."""
+    _no_grad("decode_attention", q, k_cache, v_cache)
     pos = pos.to(torch.int32)
     if _plain(impl):
         return _dec.decode_attention_plain(q, k_cache, v_cache, pos)
@@ -56,6 +71,7 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, k_new, v_new,
     lengths: (B,) cached tokens per sequence; k_new/v_new: (B, 1, KV, D)
     the step's own K/V (post-RoPE, not yet in the pool); max_len: batch-max
     sequence length INCLUDING the new token -> (B, 1, H, D)."""
+    _no_grad("paged_decode_attention", q, k_pages, v_pages, k_new, v_new)
     lengths = lengths.to(torch.int32)
     if _plain(impl):
         return _paged.paged_decode_attention_plain(
@@ -73,6 +89,7 @@ def paged_prefill_attention(q, k_pages, v_pages, table, ctx: int,
     (dump-padded; may be empty when ctx == 0); ctx: cached token count;
     k_self/v_self: (1, C, KV, D) the chunk's own K/V (post-RoPE)
     -> (1, C, H, D)."""
+    _no_grad("paged_prefill_attention", q, k_pages, v_pages, k_self, v_self)
     if table.shape[0] == 0:
         table = torch.full((1,), k_pages.shape[0] - 1, dtype=torch.int32,
                            device=k_pages.device)             # the dump page
@@ -87,6 +104,7 @@ def rwkv6_wkv(r, k, v, logw, u, state0=None, impl: str = "auto"):
     """RWKV6 WKV over T tokens. r/k/v: (B, T, H, N); logw: (B, T, H, N) <= 0;
     u: (H, N); state0: (B, H, N, N) fp32 or None (zeros)
     -> (y (B, T, H, N) fp32, final state (B, H, N, N) fp32)."""
+    _no_grad("rwkv6_wkv", r, k, v, logw, u, state0)
     logw, u = logw.float(), u.float()
     if _plain(impl):
         return _wkv.wkv_chunked_plain(r, k, v, logw, u, state0)
@@ -98,6 +116,7 @@ def mamba2_ssd(xh, b_in, c_in, dt, a_log, state0=None, impl: str = "auto"):
     shared across heads; dt: (B, T, H) post-softplus; a_log: (H,); state0:
     (B, H, N, P) fp32 or None (zeros)
     -> (y (B, T, H, P) fp32, final state (B, H, N, P) fp32)."""
+    _no_grad("mamba2_ssd", xh, b_in, c_in, dt, a_log, state0)
     dt, a_log = dt.float(), a_log.float()
     if _plain(impl):
         return _ssd.ssd_plain(xh, b_in, c_in, dt, a_log, state0)

@@ -19,7 +19,8 @@ kernel does not check.
 
 `wkv_chunked_plain` is the plain version: the reference's chunked form
 (src/repro/models/rwkv6.py `wkv_chunked`), fp32 throughout, op for op. The
-model's use_kernels=False path runs it too (on the CPU only).
+model's use_kernels=False path runs it too (training on either device,
+serving on the CPU only).
 """
 from __future__ import annotations
 

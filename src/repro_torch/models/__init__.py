@@ -6,17 +6,19 @@ from repro_torch.models.config import (
     SSMConfig,
     reduced,
 )
-from repro_torch.models.layers import DEFAULT_EXEC, ExecConfig
+from repro_torch.models.layers import DEFAULT_EXEC, TRAIN_EXEC, ExecConfig
 from repro_torch.models.backbone import (
     extend_step,
+    forward,
     init_cache,
     init_params,
+    loss_fn,
     prefill,
     serve_step,
 )
 
 __all__ = [
     "AttentionConfig", "ModelConfig", "MoEConfig", "RWKVConfig", "SSMConfig",
-    "reduced", "ExecConfig", "DEFAULT_EXEC", "extend_step", "init_cache", "init_params",
-    "prefill", "serve_step",
+    "reduced", "ExecConfig", "DEFAULT_EXEC", "TRAIN_EXEC", "extend_step", "forward",
+    "init_cache", "init_params", "loss_fn", "prefill", "serve_step",
 ]

@@ -6,23 +6,27 @@ config names sections (vlm); the paged steps refuse it, as the reference's.
 With `exec_cfg.use_kernels` (the port's default) prefill and decode go
 through `kernels/ops.py`: the hand-written kernels on the card, their plain
 versions on the CPU. Without it they run the reference's own math
-(src/repro/models/attention.py), which the port keeps for the CPU only.
-The projections stay `@` products, as the reference leaves them to XLA.
+(src/repro/models/attention.py): `blocked_attention` is its training
+attention, which `forward` runs on either device; the serving entry points
+take it on the CPU only. The projections stay `@` products, as the
+reference leaves them to XLA.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.tensor_parallel import local_attention
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.decode_attention import NEG_INF, decode_attention_plain
-from repro_torch.kernels.flash_attention import attend_block, flash_attention_plain
+from repro_torch.kernels.flash_attention import attend_block
 from repro_torch.models.config import AttentionConfig, ModelConfig
 from repro_torch.models.layers import (
     DEFAULT_EXEC,
     ExecConfig,
     apply_rope,
     normal,
-    plain_only,
     rope_angles,
     torch_dtype,
 )
@@ -40,8 +44,29 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-# the reference's `_attend_block` (q: (B, qb, H, D) at offset q_offset)
-_attend_block = attend_block
+def blocked_attention(q, k, v, causal: bool, q_block: int):
+    """The reference's non-kernel attention (its training path): the queries
+    in blocks of q_block rows, each block over the keys up to its last row
+    (all keys if not causal), its scores materialised for that block only.
+    Under autograd each block is checkpointed, so the backward pass
+    recomputes a block's scores and memory stays O(q_block), as the
+    reference's `jax.checkpoint` on its block body does. DTensor inputs (the
+    sharded train step) run it on each rank's shards."""
+    if isinstance(q, DTensor):       # the sharded train step
+        return local_attention(blocked_attention, q, k, v, causal, q_block)
+    s = q.shape[1]
+    if s <= q_block:
+        return attend_block(q, k, v, 0, causal)
+    outs = []
+    for i in range(0, s, q_block):
+        hi = min(i + q_block, s)
+        kend = hi if causal else s
+        args = (q[:, i:hi], k[:, :kend], v[:, :kend], i, causal)
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(attend_block, *args, use_reentrant=False))
+        else:
+            outs.append(attend_block(*args))
+    return torch.cat(outs, dim=1)
 
 
 def multihead_attention(q, k, v, cfg_attn: AttentionConfig,
@@ -51,8 +76,7 @@ def multihead_attention(q, k, v, cfg_attn: AttentionConfig,
     if exec_cfg.use_kernels:
         return kops.flash_attention(q, k, v, causal=cfg_attn.causal,
                                     impl=exec_cfg.impl)
-    plain_only(q, "multihead_attention")
-    return flash_attention_plain(q, k, v, cfg_attn.causal, exec_cfg.q_block)
+    return blocked_attention(q, k, v, cfg_attn.causal, exec_cfg.q_block)
 
 
 def decode_attention(q, k_cache, v_cache, pos,
@@ -61,7 +85,6 @@ def decode_attention(q, k_cache, v_cache, pos,
     caches (B, KV, S_max, D), pos: (B,) current lengths (q is at pos)."""
     if exec_cfg.use_kernels:
         return kops.decode_attention(q, k_cache, v_cache, pos, impl=exec_cfg.impl)
-    plain_only(q, "decode_attention")
     return decode_attention_plain(q, k_cache, v_cache, pos)
 
 

@@ -1,11 +1,13 @@
-"""Decoder backbone: the serving entry points of
-src/repro/models/backbone.py for all six families: dense (pre-norm GQA
+"""Decoder backbone: the entry points of src/repro/models/backbone.py for
+all six families: dense (pre-norm GQA
 transformer, RoPE, SwiGLU), moe (the same with a routed mixture of experts
 in place of the SwiGLU), audio and vlm (the dense stack fed frame or patch
 embeddings, vlm with M-RoPE), ssm (RWKV6) and hybrid (Mamba2 layers with one
 shared attention block applied every `hybrid_attn_every` layers).
 
     init_params(gen, cfg)                               -> params
+    forward(params, batch, cfg, exec_cfg)               -> logits (B, S, V)
+    loss_fn(params, batch, cfg, exec_cfg)               -> mean next-token CE
     init_cache(cfg, batch, max_seq, dtype, device)      -> cache
     prefill(params, batch, cfg, exec_cfg)               -> (last_logits, cache)
     serve_step(params, cache, tokens, cfg, exec_cfg, embeds=None)
@@ -16,7 +18,14 @@ shared attention block applied every `hybrid_attn_every` layers).
 
 `batch` is {"tokens": (B, S)} or, for the stubbed frontends (audio
 frames, vision patches), {"embeds": (B, S, D)}; M-RoPE takes
-{"positions": (3, B, S)} (three equal streams if absent). As in the
+{"positions": (3, B, S)} (three equal streams if absent); loss_fn adds
+{"labels": (B, S)}.
+
+forward and loss_fn are the training path: with the reference's training
+config (layers.TRAIN_EXEC: the blocked attention and the chunked scans, each
+layer, or each tap group of the hybrid, recomputed in the backward pass)
+they run on either device and reach no kernel. The serving entry points
+take use_kernels=False on the CPU only (layers.serving_guard). As in the
 reference, serve_step_paged takes the dense and moe families and
 prefill_chunk_paged the dense family only: MoE routes per group of tokens,
 so a chunk alone would route otherwise than the whole prefix does.
@@ -41,8 +50,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.tensor_parallel import vocab_parallel_cross_entropy
 from repro_torch.models import mamba2, rwkv6
 from repro_torch.models.attention import (
     attention_block,
@@ -62,8 +74,10 @@ from repro_torch.models.layers import (
     init_rmsnorm,
     init_swiglu,
     lm_logits,
+    moe_aux_loss,
     moe_ffn,
     rmsnorm,
+    serving_guard,
     swiglu,
     torch_dtype,
 )
@@ -81,6 +95,12 @@ def _check_family(cfg: ModelConfig, families: tuple = PORTED) -> None:
     if cfg.family not in families:
         raise ValueError(f"family {cfg.family!r} ({cfg.name}): this entry point "
                          f"takes {families} only, as in the reference")
+
+
+def _serving(params: Params, cfg: ModelConfig, exec_cfg: ExecConfig, what: str,
+             families: tuple = PORTED) -> None:
+    _check_family(cfg, families)
+    serving_guard(params["final_norm"], exec_cfg, what)
 
 
 # ---------------------------------------------------------------------------
@@ -260,20 +280,109 @@ def _m_rope(cfg: ModelConfig) -> bool:
     return cfg.attn is not None and cfg.attn.m_rope_sections is not None
 
 
+def _embed_in(params: Params, batch: dict):
+    if "embeds" in batch:
+        return batch["embeds"]
+    return embed_tokens(params["tok"], batch["tokens"])
+
+
+def _positions_in(batch: dict, b: int, s: int, cfg: ModelConfig, device):
+    """batch["positions"], else 0 .. s - 1 for every sequence (three equal
+    streams under M-RoPE)."""
+    if "positions" in batch:
+        return batch["positions"]
+    pos = torch.arange(s, device=device).expand(b, s)
+    return pos.expand(3, b, s) if _m_rope(cfg) else pos
+
+
+def _train_stages(params: Params, cfg: ModelConfig, exec_cfg: ExecConfig, positions):
+    """The stack as a list of functions x -> x, each one checkpoint unit of
+    the reference's training forward: a layer, or for the hybrid a tap group
+    (hybrid_attn_every Mamba2 layers, then the shared attention)."""
+    def attn_layer(lp):
+        def run(x):
+            h, _ = attention_block(lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps),
+                                   positions, cfg, exec_cfg)
+            return _ffn(lp, x + h, cfg, exec_cfg)
+        return run
+
+    def rwkv_layer(lp):
+        return lambda x: _rwkv_layer(lp, x, cfg, exec_cfg)[0]
+
+    def tap_group(group):
+        sp = params["shared_attn"]
+
+        def run(x):
+            for lp in group:
+                x, _ = _mamba_layer(lp, x, cfg, exec_cfg)
+            h, _ = attention_block(sp["attn"], rmsnorm(sp["norm"], x, cfg.norm_eps),
+                                   positions, cfg, exec_cfg)
+            return x + h
+        return run
+
+    layers = params["layers"]
+    if cfg.family in ATTENTION:
+        return [attn_layer(lp) for lp in layers]
+    if cfg.family == "ssm":
+        return [rwkv_layer(lp) for lp in layers]
+    every = cfg.hybrid_attn_every
+    if len(layers) % every:
+        raise ValueError(f"{len(layers)} layers do not group into taps of {every}, "
+                         "as the reference's training stack needs")
+    return [tap_group(layers[i:i + every]) for i in range(0, len(layers), every)]
+
+
+def forward(params: Params, batch: dict, cfg: ModelConfig,
+            exec_cfg: ExecConfig = DEFAULT_EXEC):
+    """Training forward: logits (B, S, V) for every position. With
+    exec_cfg.remat each stage (a layer; a tap group for the hybrid) runs
+    under a checkpoint, so the backward pass keeps only the stages' inputs
+    and recomputes the rest, as the reference's `jax.checkpoint` does."""
+    _check_family(cfg)
+    x = _embed_in(params, batch)
+    b, s, _ = x.shape
+    positions = _positions_in(batch, b, s, cfg, x.device)
+    remat = exec_cfg.remat and torch.is_grad_enabled()
+    for stage in _train_stages(params, cfg, exec_cfg, positions):
+        x = checkpoint(stage, x, use_reentrant=False) if remat else stage(x)
+    return _final_logits(params, x, cfg)
+
+
+def cross_entropy(logits, labels, vocab_size: int):
+    """Mean next-token cross-entropy in fp32, the gold logit taken by a
+    one-hot masked sum (as the reference, whose vocab dim is sharded); a
+    logits tensor sharded over the vocab (the sharded train step) takes the
+    hand-written vocab-parallel form of distributed/tensor_parallel.py."""
+    if isinstance(logits, DTensor):
+        return vocab_parallel_cross_entropy(logits, labels)
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    onehot = labels[..., None] == torch.arange(vocab_size, device=labels.device)
+    gold = torch.where(onehot, lf, 0.0).sum(dim=-1)
+    return (lse - gold).mean()
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
+            exec_cfg: ExecConfig = DEFAULT_EXEC):
+    """Mean next-token cross-entropy against batch["labels"], plus for moe
+    0.01 times layer 0's load-balancing loss on the embeddings."""
+    ce = cross_entropy(forward(params, batch, cfg, exec_cfg), batch["labels"], cfg.vocab_size)
+    if cfg.family == "moe":
+        aux = moe_aux_loss(params["layers"][0]["moe"], _embed_in(params, batch), cfg)
+        ce = ce + 0.01 * aux
+    return ce
+
+
 def prefill(params: Params, batch: dict, cfg: ModelConfig,
             exec_cfg: ExecConfig = DEFAULT_EXEC) -> tuple[torch.Tensor, Cache]:
     """Prompt processing of batch {"tokens": (B, S)} or {"embeds": (B, S, D)}
     (plus {"positions": (3, B, S)} under M-RoPE): (logits at the last
     position (B, V), cache; the K/V of the attention families and the hybrid
     hold exactly S slots)."""
-    _check_family(cfg)
-    x = batch["embeds"] if "embeds" in batch else embed_tokens(params["tok"], batch["tokens"])
+    _serving(params, cfg, exec_cfg, "prefill")
+    x = _embed_in(params, batch)
     b, s, _ = x.shape
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(s, device=x.device).expand(b, s)
-        if _m_rope(cfg):
-            positions = positions.expand(3, b, s)
+    positions = _positions_in(batch, b, s, cfg, x.device)
     pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
     if cfg.family not in ATTENTION:
         x, cache = _recurrent_segment(params, None, x, cfg, exec_cfg, positions)
@@ -297,7 +406,7 @@ def serve_step(params: Params, cache: Cache, tokens, cfg: ModelConfig,
     written at `pos`, the recurrent states stepped, and `pos` advanced by
     1). Under M-RoPE the three streams are all `pos`, as in the
     reference."""
-    _check_family(cfg)
+    _serving(params, cfg, exec_cfg, "serve_step")
     pos = cache["pos"]
     x = embeds if embeds is not None else embed_tokens(params["tok"], tokens)
     x = x[:, None, :]                                              # (B, 1, D)
@@ -371,7 +480,7 @@ def serve_step_paged(params: Params, pages_k, pages_v, tables, lengths, tokens,
     token. Returns (logits (B, V), k_tok (L, B, KV, D), v_tok) - the step's
     own K/V for `scatter_append`. Dense and moe: a decode step feeds its B
     tokens through the experts as one group either way."""
-    _check_family(cfg, ("dense", "moe"))
+    _serving(params, cfg, exec_cfg, "serve_step_paged", ("dense", "moe"))
     x = embed_tokens(params["tok"], tokens)[:, None, :]            # (B, 1, D)
     prope = lengths[:, None]
     kts, vts = [], []
@@ -393,7 +502,7 @@ def prefill_chunk_paged(params: Params, pages_k, pages_v, table, ctx0: int,
     [ctx0, ctx0 + C) attend over its ctx0 cached tokens (through `table`
     (NB,)) plus themselves. Returns (last_logits (1, V), k_c (L, KV, C, D),
     v_c) for `scatter_chunk`."""
-    _check_family(cfg, ("dense",))
+    _serving(params, cfg, exec_cfg, "prefill_chunk_paged", ("dense",))
     x = embed_tokens(params["tok"], tokens[None, :])               # (1, C, D)
     kcs, vcs = [], []
     for l, lp in enumerate(params["layers"]):
@@ -413,7 +522,7 @@ def extend_step(params: Params, cache: Cache, tokens, cfg: ModelConfig,
     a recurrent family's chunked decode): (logits (B, K, V), cache with their
     K/V written, the recurrent states advanced through the K tokens, and
     `pos` advanced by K)."""
-    _check_family(cfg)
+    _serving(params, cfg, exec_cfg, "extend_step")
     pos = cache["pos"]
     x = embed_tokens(params["tok"], tokens)
     if cfg.family not in ATTENTION:

@@ -14,7 +14,9 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.tensor_parallel import replicated_region, vocab_parallel_embed
 from repro_torch.models.config import ModelConfig, MoEConfig
 
 
@@ -22,35 +24,48 @@ from repro_torch.models.config import ModelConfig, MoEConfig
 class ExecConfig:
     """Execution knobs threaded through the model code.
 
-    use_kernels routes attention through `kernels/ops.py`: on the card the
-    hand-written kernels, on the CPU their plain versions. It defaults to
-    True here (the reference defaults to False), so the serving engine's
-    paged="auto" takes the paged path and attention reaches the kernels on
-    the card. use_kernels=False selects the reference's blocked math, which
-    the port keeps as a CPU-only plain path: on a CUDA tensor it raises.
+    use_kernels routes attention and the recurrences through
+    `kernels/ops.py`: on the card the hand-written kernels, on the CPU their
+    plain versions. It defaults to True here (the reference defaults to
+    False), so the serving engine's paged="auto" takes the paged path and
+    attention reaches the kernels on the card. use_kernels=False selects the
+    reference's blocked math: the training path (`TRAIN_EXEC`, `forward`,
+    `loss_fn`) on either device; the serving entry points take it on the
+    CPU only (`serving_guard`).
 
     impl is handed to every `kernels/ops.py` call: "auto" (a CUDA tensor
     launches the kernel, a CPU tensor takes the plain version) or "torch"
     (the plain version on either device, which `chip_smoke.py` uses to hold
     the kernel path against it on the card).
 
+    remat (the reference's default, True) recomputes each layer (each tap
+    group for the hybrid) in the backward pass of `forward`, so that only
+    layer-boundary activations are saved.
+
     moe_group_size is the reference's: tokens per MoE dispatch group. Its
-    sharding knobs (carry_spec, ep_axes) have no counterpart on one card.
+    sharding knobs (carry_spec, ep_axes) have no counterpart here.
     """
 
     q_block: int = 1024          # attention query-block length (plain path)
     use_kernels: bool = True
     impl: str = "auto"
+    remat: bool = True           # checkpoint each layer during training
     moe_group_size: int = 4096   # tokens per MoE dispatch group
 
 
 DEFAULT_EXEC = ExecConfig()
 
 
-def plain_only(x, what: str) -> None:
-    """The reference's non-kernel math (use_kernels=False) is the port's
-    CPU-only plain path: on a CUDA tensor it raises."""
-    if x.is_cuda:
+# the reference's training mode: its blocked math, each layer recomputed in
+# the backward pass (src/repro/models/layers.py ExecConfig defaults)
+TRAIN_EXEC = ExecConfig(use_kernels=False, remat=True)
+
+
+def serving_guard(x, exec_cfg: ExecConfig, what: str) -> None:
+    """The serving entry points take the reference's non-kernel math
+    (use_kernels=False) on the CPU only: on the card they go through the
+    kernels, and a CUDA tensor raises."""
+    if not exec_cfg.use_kernels and x.is_cuda:
         raise ValueError(f"{what} with use_kernels=False runs on the CPU only; "
                          "on the card it goes through the kernels")
 
@@ -165,6 +180,8 @@ def moe_ffn(p: dict, x, cfg: ModelConfig, exec_cfg: ExecConfig = DEFAULT_EXEC):
     """x (B, S, D) -> (B, S, D), the reference's `moe_ffn` op for op. Its
     sharding anchors (carry_spec, ep_axes) pin buffers to mesh axes and have
     no counterpart on one card: they are left out."""
+    if isinstance(x, DTensor):         # the sharded train step
+        return replicated_region(moe_ffn, p, x, cfg, exec_cfg)
     m = cfg.moe
     b, s, d = x.shape
     total = b * s
@@ -215,6 +232,20 @@ def moe_ffn(p: dict, x, cfg: ModelConfig, exec_cfg: ExecConfig = DEFAULT_EXEC):
     return out.reshape(b, s, d)
 
 
+def moe_aux_loss(p: dict, x, cfg: ModelConfig):
+    """Switch-style load-balancing loss of the router p over x (..., D): E
+    times the dot product of each expert's top-1 share and its mean router
+    probability. The router product runs in the activation dtype and only the
+    (T, E) logits are upcast, as in the reference."""
+    if isinstance(x, DTensor):         # the sharded train step
+        return replicated_region(moe_aux_loss, p, x, cfg)
+    e = cfg.moe.num_experts
+    logits = (x.reshape(-1, cfg.d_model) @ p["router"].to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    frac = F.one_hot(probs.argmax(dim=-1), e).float().mean(dim=0)
+    return e * (frac * probs.mean(dim=0)).sum()
+
+
 # ---------------------------------------------------------------------------
 # Embedding / LM head
 # ---------------------------------------------------------------------------
@@ -228,7 +259,14 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def embed_tokens(p: dict, tokens):
-    return p["embed"][tokens]
+    """The table's rows for tokens (...,). F.embedding, whose backward on the
+    card sums a row's gradients in a fixed order (an indexing gather's
+    accumulates them with atomics, so two runs would differ). A table
+    sharded by rows over a mesh (the sharded train step) takes the
+    hand-written vocab-parallel lookup of distributed/tensor_parallel.py."""
+    if isinstance(p["embed"], DTensor):
+        return vocab_parallel_embed(p["embed"], tokens)
+    return F.embedding(tokens, p["embed"])
 
 
 def lm_logits(p: dict, x):

@@ -8,9 +8,9 @@ Selective state-space recurrence (per head, state N, head channels P):
 With `exec_cfg.use_kernels` (the port's default) a whole segment's SSD goes
 through `kernels/ops.py`: the hand-written kernel on the card, its plain
 version on the CPU. Without it the reference's chunked form runs in the
-activation dtype, which the port keeps for the CPU only. The one-token step
-(decode) and the causal convolution are plain torch, as the reference's are
-plain jnp. B and C are shared across heads (n_groups=1), matching Zamba2.
+activation dtype: the training path on either device, the serving entry
+points on the CPU only. The one-token step (decode) and the causal
+convolution are plain torch, as the reference's are plain jnp. B and C are shared across heads (n_groups=1), matching Zamba2.
 """
 from __future__ import annotations
 
@@ -24,7 +24,6 @@ from repro_torch.models.layers import (
     DEFAULT_EXEC,
     ExecConfig,
     normal,
-    plain_only,
     rmsnorm,
     torch_dtype,
 )
@@ -85,7 +84,6 @@ def ssd_chunked(xh, b_in, c_in, dt, a_log, state0=None, chunk: int = 128):
     """Chunked SSD scan (the use_kernels=False math), intra-chunk tensors in
     the activation dtype. xh: (B, T, H, P), b_in/c_in: (B, T, N), dt:
     (B, T, H) fp32, state0: (B, H, N, P) fp32 or None -> (y fp32, state)."""
-    plain_only(xh, "ssd_chunked")
     return ssd_chunked_math(xh, b_in, c_in, dt, a_log, state0, chunk)
 
 

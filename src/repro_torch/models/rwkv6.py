@@ -8,9 +8,10 @@ Recurrence (per head, head_dim = n):
 
 With `exec_cfg.use_kernels` (the port's default) a whole segment's WKV goes
 through `kernels/ops.py`: the hand-written kernel on the card, its plain
-version on the CPU. Without it the reference's chunked form runs, which the
-port keeps for the CPU only. The one-token step (decode) is plain torch, as
-the reference's is plain jnp.
+version on the CPU. Without it the reference's chunked form runs: the
+training path on either device, the serving entry points on the CPU only.
+The one-token step (decode) is plain torch, as the reference's is plain
+jnp.
 
 Per-channel log-decays are clamped to [-DECAY_CLAMP, -1e-4] (`_decay`), so
 the chunked form's centred factors stay fp32-safe.
@@ -29,7 +30,6 @@ from repro_torch.models.layers import (
     DEFAULT_EXEC,
     ExecConfig,
     normal,
-    plain_only,
     rmsnorm,
     torch_dtype,
 )
@@ -100,7 +100,6 @@ def _decay(p: dict, xw):
 def wkv_chunked(r, k, v, logw, u, state0=None, chunk: int = CHUNK):
     """Chunked WKV6 (the use_kernels=False math). r/k/v/logw: (B, T, H, N),
     u: (H, N), state0: (B, H, N, N) fp32 or None -> (y fp32, final state)."""
-    plain_only(r, "wkv_chunked")
     return wkv_chunked_plain(r, k, v, logw, u, state0, chunk)
 
 

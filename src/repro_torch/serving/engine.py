@@ -58,7 +58,7 @@ from repro_torch.core.carbon import CHIP_DB
 from repro_torch.core.spec_decode import SpecConfig, spec_decode_round
 from repro_torch.models import backbone
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import DEFAULT_EXEC, ExecConfig, torch_dtype
+from repro_torch.models.layers import DEFAULT_EXEC, ExecConfig, serving_guard, torch_dtype
 from repro_torch.serving.batching import (
     BatchPolicy,
     ContinuousScheduler,
@@ -198,6 +198,8 @@ class ServingEngine:
             if p is not None and p["tok"]["embed"].device != self.device:
                 raise ValueError(f"{name} live on {p['tok']['embed'].device}, "
                                  f"the engine on {self.device}")
+            if p is not None:
+                serving_guard(p["final_norm"], exec_cfg, "ServingEngine")
         self.pool = PagedKVPool(target_cfg, pool_blocks, block_size,
                                 dtype=torch_dtype(target_cfg), device=self.device)
         self.draft_pool = (

@@ -7,7 +7,9 @@ machine with one run them with
 
 Each kernel is held against its plain version (impl="torch") on the same
 CUDA tensors, its wrapper must refuse what the kernel does not take, and the
-model's use_kernels=False path must refuse CUDA tensors. This file imports
+kernels' front door must refuse an input that requires a gradient (no kernel
+has a backward). The training path (use_kernels=False) runs on the card and
+reaches no kernel; the serving entry points refuse use_kernels=False there. This file imports
 neither JAX nor the reference package: the card's machine has neither.
 """
 import itertools
@@ -471,13 +473,31 @@ def test_recurrence_wrappers_refuse_what_the_kernels_do_not_take(gen):
 
 
 def test_recurrent_plain_paths_refuse_the_card(gen):
+    """The chunked scans (use_kernels=False) are the training path and run
+    on the card, equal to the kernels' plain versions; the serving entry
+    points of the recurrent families refuse use_kernels=False there."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import backbone
+    from repro_torch.models.layers import ExecConfig
     from repro_torch.models.mamba2 import ssd_chunked
     from repro_torch.models.rwkv6 import wkv_chunked
 
-    with pytest.raises(ValueError, match="CPU only"):
-        wkv_chunked(*_wkv_inputs(gen, 1, 8, 2, 64, torch.float32))
-    with pytest.raises(ValueError, match="CPU only"):
-        ssd_chunked(*_ssd_inputs(gen, 1, 8, 2, 64, 64, torch.float32))
+    args = _wkv_inputs(gen, 1, 8, 2, 64, torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(wkv_chunked(*args), wkv.wkv_chunked_plain(*args)))
+    args = _ssd_inputs(gen, 1, 8, 2, 64, 64, torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(ssd_chunked(*args), ssd.ssd_plain(*args)))
+    plain = ExecConfig(use_kernels=False)
+    for arch in ("rwkv6-7b", "zamba2-2.7b"):
+        cfg = get_reduced_config(arch)
+        params = backbone.init_params(gen, cfg)
+        tokens = torch.zeros(1, 8, dtype=torch.long, device="cuda")
+        with pytest.raises(ValueError, match="CPU only"):
+            backbone.prefill(params, {"tokens": tokens}, cfg, plain)
+        cache = backbone.init_cache(cfg, 1, 16)
+        with pytest.raises(ValueError, match="CPU only"):
+            backbone.serve_step(params, cache, tokens[:, 0], cfg, plain)
+        with pytest.raises(ValueError, match="CPU only"):
+            backbone.extend_step(params, cache, tokens[:, :2], cfg, plain)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -510,13 +530,94 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
 
 
 def test_blocked_path_refuses_the_card(gen):
+    """The reference's blocked attention (use_kernels=False) is the training
+    path: it runs on the card and equals the plain version. The serving
+    entry points and the engine refuse use_kernels=False there."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import backbone
     from repro_torch.models.attention import multihead_attention
     from repro_torch.models.config import AttentionConfig
     from repro_torch.models.layers import ExecConfig
+    from repro_torch.serving.engine import ServingEngine
 
     q = _rand(gen, 1, 8, 4, 32)
-    with pytest.raises(ValueError, match="CPU only"):
-        multihead_attention(q, q, q, AttentionConfig(4, 4, 32), ExecConfig(use_kernels=False))
+    plain = ExecConfig(use_kernels=False, q_block=4)
+    got = multihead_attention(q, q, q, AttentionConfig(4, 4, 32), plain)
+    _close(got, fla.flash_attention_plain(q, q, q, True), torch.float32)
+    cfg = get_reduced_config("yi-6b")
+    params = backbone.init_params(gen, cfg)
+    tokens = torch.zeros(2, 8, dtype=torch.long, device="cuda")
+    cache = backbone.init_cache(cfg, 2, 16)
+    pages = torch.zeros(cfg.num_layers, 3, cfg.attn.num_kv_heads, 8, cfg.attn.head_dim,
+                        dtype=torch.bfloat16, device="cuda")
+    table = torch.full((2, 1), 2, dtype=torch.int32, device="cuda")
+    lengths = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for call in (lambda: backbone.prefill(params, {"tokens": tokens}, cfg, plain),
+                 lambda: backbone.serve_step(params, cache, tokens[:, 0], cfg, plain),
+                 lambda: backbone.extend_step(params, cache, tokens[:, :2], cfg, plain),
+                 lambda: backbone.serve_step_paged(params, pages, pages, table, lengths,
+                                                   tokens[:, 0], cfg, plain, max_len=1),
+                 lambda: backbone.prefill_chunk_paged(params, pages, pages, table[0], 0,
+                                                      tokens[0], cfg, plain),
+                 lambda: ServingEngine(cfg, params, exec_cfg=plain)):
+        with pytest.raises(ValueError, match="CPU only"):
+            call()
+
+
+def test_the_front_door_refuses_inputs_that_require_a_gradient(gen):
+    """No kernel has a backward pass: an input that requires a gradient
+    while autograd records is refused, under either impl; without autograd
+    the same call runs."""
+    q = _rand(gen, 1, 16, 4, 64, dtype=torch.bfloat16)
+    qg = q.clone().requires_grad_()
+    for impl in ("auto", "torch"):
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.flash_attention(qg, q, q, impl=impl)
+    with torch.no_grad():
+        _close(ops.flash_attention(qg, q, q), ops.flash_attention(q, q, q, impl="torch"),
+               torch.bfloat16)
+    kc = q[:, :8].transpose(1, 2).contiguous()
+    pos = torch.full((1,), 7, dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.decode_attention(qg[:, :1], kc, kc, pos)
+    r, k, v, logw, u, s0 = _wkv_inputs(gen, 1, 8, 2, 64, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.rwkv6_wkv(r.requires_grad_(), k, v, logw, u, s0)
+    x, bm, cm, dt, a_log, s0 = _ssd_inputs(gen, 1, 8, 2, 64, 64, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.mamba2_ssd(x, bm, cm, dt.requires_grad_(), a_log, s0)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen2-moe-a2.7b", "rwkv6-7b", "zamba2-2.7b",
+                                  "musicgen-medium", "qwen2-vl-72b"])
+def test_forward_and_loss_run_on_the_card_with_the_training_config(gen, arch):
+    """forward and loss_fn with TRAIN_EXEC on the card, in fp32, against the
+    same weights and batch on the CPU (the reference's math on both), and
+    their gradients; no kernel launches."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import backbone
+    from repro_torch.models.layers import TRAIN_EXEC
+    from repro_torch.training.data import synthetic_batch, to_device
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train_step import value_and_grad
+
+    cfg = get_reduced_config(arch, dtype="float32")
+    params = backbone.init_params(gen, cfg)
+    host = synthetic_batch(cfg, 2, 40, 0, 0)
+    kernels = [fla.KERNEL, dec.KERNEL, wkv.KERNEL, ssd.KERNEL, pag.DECODE_KERNEL,
+               pag.PREFILL_KERNEL]
+    before = [k.launches for k in kernels]
+    loss, grads = value_and_grad(params, to_device(host, "cuda", torch.float32), cfg, TRAIN_EXEC)
+    assert [k.launches for k in kernels] == before
+    cpu = tree_map(lambda t: t.cpu(), params)
+    want, want_g = value_and_grad(cpu, to_device(host, "cpu", torch.float32), cfg, TRAIN_EXEC)
+    assert abs(float(loss) - float(want)) < 1e-5 * abs(float(want))
+    for g, w in zip(tree_leaves(grads), tree_leaves(want_g)):
+        assert torch.isfinite(g).all()
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max()) + 1e-12
+    with torch.no_grad():
+        logits = backbone.forward(params, to_device(host, "cuda", torch.float32), cfg, TRAIN_EXEC)
+    assert logits.shape == (2, 40, cfg.vocab_size) and logits.is_cuda
 
 
 def test_first_use_build_saves_its_ptxas_log(gen, tmp_path, monkeypatch):
