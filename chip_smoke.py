@@ -137,6 +137,20 @@ no result:
            compared with the launcher's bit for bit. Every kernel's launch
            count must not move over the phase. Under --tree, a tree without
            training prints "training: not in this tree".
+  dryrun   repro_torch.launch.dryrun on the host, over fake process groups
+           (nothing allocated; meta tensors as DTensors): full-depth proof
+           cells (llama-7b and qwen2-moe-a2.7b train_4k on the (16, 16) pod,
+           zamba2-2.7b long_500k on the (2, 16, 16) multi-pod mesh,
+           musicgen-medium decode_32k), each record printed with its host
+           seconds; its prediction for the training phase's own cell (one
+           AdamW step on a (1, 1) mesh) beside what the card measured there:
+           peak bytes against max_memory_allocated (within DRYRUN_PEAK) and
+           counted FLOPs against the model-FLOPs formula; kernels/smem.py
+           held == to every library's own report of its launch
+           configuration (dynamic and static shared bytes, threads, and a
+           register count that fits an SM) at every instantiation its
+           launchers reach. Under --tree, a tree without the dry-run prints
+           "dryrun: not in this tree".
 After all path phases every kernel must have launched on a path.
 
 The engine's modelled clock, energy and carbon are the cost model's figures
@@ -1858,7 +1872,7 @@ def phase_training(checks, card):
         print(f"training: a CUDA input that requires a gradient is refused: {e}", flush=True)
     else:
         raise RuntimeError("flash_attention took an input that requires a gradient")
-    _train_dense(card)
+    dense = _train_dense(card)
     torch.cuda.empty_cache()
     for arch, layers in TRAIN_FAMILIES:
         _train_family(arch, layers)
@@ -1870,6 +1884,7 @@ def phase_training(checks, card):
         raise RuntimeError(f"training launched kernels: {used}")
     print(f"training: kernel launches over the phase {used}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dense
 
 
 def _batch(cfg, b, s, step=0):
@@ -2014,6 +2029,7 @@ def _train_dense(card):
     for e in sorted(on_card, key=lambda e: -e.device_time_total)[:8]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}", flush=True)
     del params, opt, batch, m
+    return {"peak_bytes": peak, "model_flops": model_flops}
 
 
 def _train_family(arch, layers):
@@ -2184,6 +2200,87 @@ def _train_restart(cfg):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ dryrun
+# full-depth proof cells of the dry-run on the host: (arch, shape, mesh)
+DRYRUN_CELLS = (("llama-7b", "train_4k", "single_pod"),
+                ("qwen2-moe-a2.7b", "train_4k", "single_pod"),
+                ("zamba2-2.7b", "long_500k", "multi_pod"),
+                ("musicgen-medium", "decode_32k", "single_pod"))
+#   the dry-run's peak for the training phase's cell over the card's
+#   max_memory_allocated across that phase's AdamW steps. Under 0.9: the
+#   dry-run missed tensors the card held (it tracks every storage from its
+#   creation to its death; the allocator only rounds blocks up to 512 B).
+#   Over 1.3: it predicts the sharded step on a (1, 1) mesh (the
+#   vocab-parallel loss and DTensor's redistributes) where the phase ran
+#   train_step, and holds a storage until its Python object dies where the
+#   card's allocator may reuse the block sooner; beyond that the prediction
+#   is no guide to what a cell needs. Readings: 43.03 GiB predicted on a
+#   CPU against the 43.09 GiB the training phase measured on an H100
+#   (PERF.md §6)
+DRYRUN_PEAK = (0.9, 1.3)
+
+
+def phase_dryrun(card, dense):
+    """The dry-run (repro_torch.launch.dryrun) on the host, over fake
+    process groups of 256 and 512 ranks: (a) full-depth proof cells, each
+    record printed; (b) its prediction for the training phase's own cell
+    against what the card measured in that phase (peak bytes, bounded by
+    DRYRUN_PEAK; FLOPs beside the phase's model-FLOPs formula); (c)
+    kernels/smem.py held == to each library's own launch configuration."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.kernels import build, smem
+    from repro_torch.launch import dryrun as dr
+
+    t0 = time.perf_counter()
+    for arch, shape, mesh_name in DRYRUN_CELLS:
+        t = time.perf_counter()
+        with dr.production_mesh(mesh_name) as mesh:
+            rec = dr.run_cell(arch, shape, mesh, "proof")
+        secs = time.perf_counter() - t
+        if rec["status"] != "ok":
+            raise RuntimeError(f"dryrun {arch}/{shape}/{mesh_name}: {rec}")
+        print(f"dryrun {arch}/{shape}/{mesh_name}/proof: host {secs:.1f} s; {json.dumps(rec)}",
+              flush=True)
+    # (b) the training phase's cell: one AdamW step of the sharded step on a
+    # (1, 1) mesh, remat, microbatches 1
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    t = time.perf_counter()
+    with dr.fake_mesh((1, 1), ("data", "model")) as mesh:
+        rec, arg, out, _ = dr.lower_cell(
+            cfg, ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH), mesh)
+    pred = dr.analyze(rec, arg, out)
+    secs = time.perf_counter() - t
+    peak = pred["peak_bytes"] / dense["peak_bytes"]
+    flops = pred["flops_per_device"] / dense["model_flops"]
+    print(f"dryrun against the card ({TRAIN_ARCH}, {TRAIN_LAYERS} layers, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, AdamW, remat, (1, 1) mesh): peak {pred['peak_bytes'] / 2**30:.3f}"
+          f" GiB predicted (arguments {arg / 2**30:.3f} + temp "
+          f"{pred['temp_bytes'] / 2**30:.3f}) vs {dense['peak_bytes'] / 2**30:.3f} GiB "
+          f"max_memory_allocated over the training phase's steps: {peak:.4f} (limits "
+          f"{DRYRUN_PEAK[0]}-{DRYRUN_PEAK[1]}); FLOPs {pred['flops_per_device']:.4e} counted "
+          f"(remat recompute included) vs {dense['model_flops']:.4e} model FLOPs a step: "
+          f"{flops:.4f}; host {secs:.1f} s; card {card}", flush=True)
+    if not DRYRUN_PEAK[0] <= peak <= DRYRUN_PEAK[1]:
+        raise RuntimeError(f"the dry-run's peak is {peak:.4f}x the card's")
+    # (c) smem.py against the libraries (built by the build phase; cached)
+    build.build_all()
+    path = ("flash D128 b2", "flash D80 b2", "decode D128 G1 b2", "paged_decode D128 G1 b2 bs16 "
+            "chunk1024", "paged_prefill D128 b2 pages1", "wkv N64 b2", "ssd N64 P64 b2")
+    n = 0
+    for label, source, symbol, args, est in smem.cases():
+        dyn, static, regs, threads = build.query(source, symbol, *args)
+        if (dyn, static, threads) != (est.dynamic_bytes, est.static_bytes, est.threads) or \
+                not smem.regs_fit(regs, threads):
+            raise RuntimeError(f"smem.py {label}: {est} vs {symbol}{args} = dynamic {dyn}, "
+                               f"static {static}, {regs} registers, {threads} threads")
+        if label in path:
+            print(f"  smem {label}: {dyn} + {static} bytes of {smem.SMEM_BYTES}, {regs} "
+                  f"registers x {threads} threads", flush=True)
+        n += 1
+    print(f"dryrun: smem.py == each library's own launch configuration at {n} instantiations; "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def _print_port_kernels(on_card) -> None:
     """The profile's rows of the port's own kernels (the `*_kernel`
     functions of the imported package's csrc/, each in its source's
@@ -2300,7 +2397,11 @@ def main(argv: list[str]) -> int:
     if other is not None and importlib.util.find_spec("repro_torch.training") is None:
         print("training: not in this tree", flush=True)
     else:
-        phase_training(checks, card)
+        dense = phase_training(checks, card)
+        if other is not None and importlib.util.find_spec("repro_torch.launch.dryrun") is None:
+            print("dryrun: not in this tree", flush=True)
+        else:
+            phase_dryrun(card, dense)
     idle = [n for n, ck in checks.items() if ck.path_launches == 0]
     if idle:
         raise RuntimeError(f"kernels never launched on a path: {idle}")

@@ -11,13 +11,16 @@ shape maps to the step function the dry-run lowers:
 ``long_500k`` runs only for the sub-quadratic archs (ssm/hybrid); the 8
 pure full-attention archs record a documented skip (DESIGN.md §4).
 
-The reference's ``input_specs`` (ShapeDtypeStructs for the dry-run) is not
-ported yet: it comes with training (ROADMAP queue 1, item 11).
+``input_specs`` gives each cell's inputs as tensors that hold no memory
+(meta, or fake under the caller's FakeTensorMode), in the reference's
+trees; launch/dryrun.py places them on a fake production mesh.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+
+import torch
 
 from repro_torch.models.config import ModelConfig, reduced
 
@@ -84,3 +87,37 @@ def cell_is_runnable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
             f"{cfg.name} is pure full-attention (DESIGN.md §4)"
         )
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape, dtype=torch.bfloat16, device="meta") -> dict:
+    """Stand-ins for every model input of this cell, on `device` (meta: no
+    memory). `shape` is a name of SHAPES or a ShapeSpec. Returns {"batch":
+    ...} for train/prefill kinds and {"cache": ..., "tokens": ...} for
+    decode kinds, as the reference's ShapeDtypeStructs."""
+    sp = shape if isinstance(shape, ShapeSpec) else SHAPES[shape]
+    b, s = sp.global_batch, sp.seq_len
+    i32 = torch.int32
+
+    def sds(shp, dt):
+        return torch.empty(shp, dtype=dt, device=device)
+
+    if sp.kind in ("train", "prefill"):
+        batch: dict = {}
+        if cfg.frontend is not None:
+            # stubbed modality frontend: precomputed frame/patch embeddings
+            batch["embeds"] = sds((b, s, cfg.d_model), dtype)
+        else:
+            batch["tokens"] = sds((b, s), i32)
+        if cfg.attn is not None and cfg.attn.m_rope_sections is not None:
+            batch["positions"] = sds((3, b, s), i32)
+        if sp.kind == "train":
+            batch["labels"] = sds((b, s), i32)
+        return {"batch": batch}
+
+    # decode: a cache filled to s tokens plus one new token per sequence
+    from repro_torch.models.backbone import init_cache
+
+    out = {"cache": init_cache(cfg, b, s, dtype, device=device), "tokens": sds((b,), i32)}
+    if cfg.frontend == "audio_frames":
+        out["embeds"] = sds((b, cfg.d_model), dtype)
+    return out

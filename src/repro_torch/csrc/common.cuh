@@ -246,6 +246,23 @@ static int rt_launch(Kernel kernel, dim3 grid, dim3 block, size_t smem, cudaStre
   return (int)cudaGetLastError();
 }
 
+// The launch configuration of one instantiation, for the libraries' smem
+// queries (kernels/smem.py holds its estimates to these): out[0] the dynamic
+// shared bytes its launcher passes, out[1] its static shared bytes and out[2]
+// its registers a thread (both as ptxas gave them), out[3] its threads a
+// block. Returns a cudaError_t code.
+template <typename Kernel>
+static int rt_query(Kernel kernel, size_t smem, int threads, long long* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = (long long)smem;
+  out[1] = (long long)a.sharedSizeBytes;
+  out[2] = a.numRegs;
+  out[3] = threads;
+  return 0;
+}
+
 // Each kernel source is built into a library of its own, so each defines
 // this once: the message for a code a launcher returned.
 extern "C" const char* rt_error_string(int code) {

@@ -87,3 +87,14 @@ extern "C" int decode_attention_launch(const void* q, const void* kc, const void
       : launch<float, HD, R>(q, kc, vc, p, o, w, tk, B, KV, G, S, nsplit, chunk, scale,
                              st)));
 }
+
+// The launch configuration at head dim D for G query rows a kv head, bf16 or
+// fp32 (common.cuh rt_query).
+extern "C" int decode_attention_smem(int D, int G, int is_bf16, long long* out) {
+  if (G <= 0) return (int)cudaErrorInvalidValue;
+  RT_DISPATCH_D(D, RT_DISPATCH_R(rt_rows_per_block(G), return is_bf16
+      ? rt_query(decode_kernel<__nv_bfloat16, HD, R>, dec::smem_bytes<__nv_bfloat16, HD, R>(0),
+                 dec::THREADS, out)
+      : rt_query(decode_kernel<float, HD, R>, dec::smem_bytes<float, HD, R>(0), dec::THREADS,
+                 out)));
+}

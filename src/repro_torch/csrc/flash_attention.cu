@@ -157,3 +157,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
       ? launch_bf16<HD>(q, k, v, o, B, S, H, KV, causal, st)
       : launch_fp32<HD>(q, k, v, o, B, S, H, KV, causal, scale, st));
 }
+
+// The launch configuration at head dim D, bf16 or fp32 (common.cuh rt_query).
+extern "C" int flash_attention_smem(int D, int is_bf16, long long* out) {
+  RT_DISPATCH_D(D, return is_bf16
+      ? rt_query(flash_mma_kernel<HD>, mma::smem_bytes<HD>(), mma::THREADS, out)
+      : rt_query(flash_kernel<HD>, smem_bytes<HD>(), WARPS * 32, out));
+}

@@ -516,3 +516,24 @@ extern "C" int mamba2_ssd_launch_chunk(const void* x, const void* bm, const void
   if (chunk == 128) return launch_mma<64, 64, 128>(x, bm, cm, d, al, s0, yy, so, B, T, H, st);
   return (int)cudaErrorInvalidValue;
 }
+
+// The launch configuration at state size N and head channels P, bf16 (the
+// chunked form at CHUNK_AT<N, P>) or fp32 (the per-token form, static shared
+// memory only) (common.cuh rt_query).
+extern "C" int mamba2_ssd_smem(int N, int P, int is_bf16, long long* out) {
+  SSD_DISPATCH_N(N, SSD_DISPATCH_P(P, return is_bf16
+      ? rt_query(ssd_mma_kernel<SN, SP, CHUNK_AT<SN, SP>>, sizeof(SsdSmem<SN, SP, CHUNK_AT<SN, SP>>),
+                 WARPS * 32, out)
+      : rt_query(ssd_token_kernel<SN, SP>, 0, SP * SPLIT, out)));
+}
+
+// The same for mamba2_ssd_launch_chunk's instantiations (N = P = 64).
+extern "C" int mamba2_ssd_chunk_smem(int chunk, long long* out) {
+  if (chunk == 32) return rt_query(ssd_mma_kernel<64, 64, 32>, sizeof(SsdSmem<64, 64, 32>),
+                                   WARPS * 32, out);
+  if (chunk == 64) return rt_query(ssd_mma_kernel<64, 64, 64>, sizeof(SsdSmem<64, 64, 64>),
+                                   WARPS * 32, out);
+  if (chunk == 128) return rt_query(ssd_mma_kernel<64, 64, 128>, sizeof(SsdSmem<64, 64, 128>),
+                                    WARPS * 32, out);
+  return (int)cudaErrorInvalidValue;
+}

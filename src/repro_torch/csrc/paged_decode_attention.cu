@@ -60,12 +60,16 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp, const T* 
                        smem);
 }
 
+// Page ids a split of chunk keys can touch, which a block copies beside the
+// decode core's shared memory.
+static inline int split_page_ids(int chunk, int bs_log2) { return (chunk >> bs_log2) + 2; }
+
 template <typename T, int D, int R>
 int launch(const void* q, const void* kp, const void* vp, const int* tables, const int* lengths,
            const void* kn, const void* vn, void* o, float* ws, int* tickets, int B, int KV, int G,
            int bs_log2, int NB, int nsplit, int chunk, float scale, cudaStream_t stream) {
   dim3 grid(nsplit * ((G + R - 1) / R), KV, B);
-  const int ids = (chunk >> bs_log2) + 2;     // pages a split of chunk keys can touch
+  const int ids = split_page_ids(chunk, bs_log2);
   return rt_launch(paged_decode_kernel<T, D, R>, grid, dim3(dec::THREADS),
                    dec::smem_bytes<T, D, R>(ids), stream, (const T*)q, (const T*)kp,
                    (const T*)vp, tables, lengths, (const T*)kn, (const T*)vn, (T*)o, ws, tickets,
@@ -105,4 +109,19 @@ extern "C" int paged_decode_launch(const void* q, const void* kp, const void* vp
                                      nsplit, chunk, scale, st)
       : launch<float, HD, R>(q, kp, vp, tb, ln, kn, vn, o, w, tk, B, KV, G, bs_log2, NB,
                              nsplit, chunk, scale, st)));
+}
+
+// The launch configuration at head dim D for G query rows a kv head, pages
+// of bs tokens (a power of two) and splits of chunk keys, bf16 or fp32
+// (common.cuh rt_query): the host's split sets the page ids a block holds.
+extern "C" int paged_decode_smem(int D, int G, int bs, int chunk, int is_bf16, long long* out) {
+  if (G <= 0 || bs <= 0 || (bs & (bs - 1)) || chunk <= 0) return (int)cudaErrorInvalidValue;
+  int bs_log2 = 0;
+  while ((1 << bs_log2) < bs) ++bs_log2;
+  const int ids = split_page_ids(chunk, bs_log2);
+  RT_DISPATCH_D(D, RT_DISPATCH_R(rt_rows_per_block(G), return is_bf16
+      ? rt_query(paged_decode_kernel<__nv_bfloat16, HD, R>,
+                 dec::smem_bytes<__nv_bfloat16, HD, R>(ids), dec::THREADS, out)
+      : rt_query(paged_decode_kernel<float, HD, R>, dec::smem_bytes<float, HD, R>(ids),
+                 dec::THREADS, out)));
 }

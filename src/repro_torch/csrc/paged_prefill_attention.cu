@@ -127,6 +127,13 @@ using mma::bf16;
 // blocks still fit on an SM at D = 128); a longer table is read in place.
 constexpr int SMEM_TABLE = 4096;
 
+// Dynamic shared memory of the bf16 kernel: the core's, then the table of a
+// context of npages pages when it fits.
+template <int D>
+size_t mma_smem(int npages) {
+  return mma::smem_bytes<D>() + sizeof(int) * (npages <= SMEM_TABLE ? npages : 0);
+}
+
 template <int D>
 __global__ void __launch_bounds__(mma::THREADS, mma::blocks_per_sm(D))
 paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
@@ -174,8 +181,7 @@ int launch_bf16(const void* q, const void* kp, const void* vp, const int* table,
       || !aligned16(vs) || !aligned16(o))
     return (int)cudaErrorMisalignedAddress;
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
-  const int npages = (ctx + bs - 1) / bs;
-  const size_t smem = mma::smem_bytes<D>() + sizeof(int) * (npages <= SMEM_TABLE ? npages : 0);
+  const size_t smem = mma_smem<D>((ctx + bs - 1) / bs);
   dim3 grid(KV, (C * G + mma::ROWS - 1) / mma::ROWS);
   return rt_launch(paged_prefill_mma_kernel<D>, grid, dim3(mma::THREADS), smem, stream,
                    (const bf16*)q, (const bf16*)kp, (const bf16*)vp, table, ctx,
@@ -199,4 +205,14 @@ extern "C" int paged_prefill_launch(const void* q, const void* kp, const void* v
   RT_DISPATCH_D(D, return is_bf16
       ? launch_bf16<HD>(q, kp, vp, tb, ctx, ks, vs, o, C, KV, G, bs, st)
       : launch_fp32<HD>(q, kp, vp, tb, ctx, ks, vs, o, C, KV, G, bs, scale, st));
+}
+
+// The launch configuration at head dim D over a context of npages pages,
+// bf16 or fp32 (common.cuh rt_query). The chunk's rows are tiled 64 a block:
+// its length changes nothing here.
+extern "C" int paged_prefill_smem(int D, int is_bf16, int npages, long long* out) {
+  if (npages < 0) return (int)cudaErrorInvalidValue;
+  RT_DISPATCH_D(D, return is_bf16
+      ? rt_query(paged_prefill_mma_kernel<HD>, mma_smem<HD>(npages), mma::THREADS, out)
+      : rt_query(paged_prefill_kernel<HD>, pf_smem_bytes<HD>(), PF_WARPS * 32, out));
 }

@@ -463,3 +463,11 @@ extern "C" int rwkv6_wkv_launch(const void* r, const void* k, const void* v, con
       ? launch_mma<HN>(r, k, v, lw, uu, s0, yy, so, B, T, H, st)
       : launch_token<HN>(r, k, v, lw, uu, s0, yy, so, B, T, H, st));
 }
+
+// The launch configuration at head size N, bf16 (the chunked form) or fp32
+// (the per-token form, static shared memory only) (common.cuh rt_query).
+extern "C" int rwkv6_wkv_smem(int N, int is_bf16, long long* out) {
+  WKV_DISPATCH_N(N, return is_bf16
+      ? rt_query(wkv_mma_kernel<HN>, sizeof(WkvSmem<HN>), 2 * HN, out)
+      : rt_query(wkv_token_kernel<HN>, 0, HN * SPLIT, out));
+}

@@ -32,6 +32,24 @@ all-gather of the batch over the data axes and of the expert banks over
 "model"), every rank computes the whole function, and the output returns
 to the input's placements.
 
+The chunked recurrences (WKV, SSD) are independent per sequence and per
+head too, and a chunk loop of small products would pay DTensor's dispatch
+on every one: `per_head_region` runs such a function on each rank's shards
+(the batch where the data axes shard it, the heads where their count
+divides the mesh dim, else whole) and places its results alike.
+
+A decode cache sharded on its sequence dim (sharding.cache_pspecs) takes
+the step's new K/V by `write_slots`: each rank writes the rows that fall in
+its own slice of the sequence, in place, as XLA's partitioner lowers the
+reference's dynamic-update-slice; DTensor refuses an in-place index_put_
+on a sharded dim. `local_decode_attention` attends over such a cache
+flash-decoding style: the query (one token) is gathered whole, each rank
+scores its own keys, and the softmax's max and sum and the weighted values
+are reduced over the mesh dims that shard the sequence. No serving path
+holds a sharded cache: the dry-run's decode cells (launch/dryrun.py) are
+these two functions' only caller, and tests/test_torch_sharded_decode.py
+holds them to the plain decode.
+
 The sums pass their gradient through unchanged (each rank's partial term
 gets the whole gradient of the sum); the max is a constant of the
 log-sum-exp and carries none. DTensor's own autograd carries everything
@@ -42,7 +60,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 
 class _SumOver(torch.autograd.Function):
@@ -88,6 +107,17 @@ def _batch_placements(placements, ndim_keep: int) -> list:
     """A token tensor's placements: its own shards of dims < ndim_keep,
     Replicate elsewhere."""
     return [p if p.is_shard() and p.dim < ndim_keep else Replicate() for p in placements]
+
+
+def _from_local(t, mesh, placements, shape) -> DTensor:
+    """A DTensor of global `shape` from this rank's shard t: the shape is
+    given, as a batch may split unevenly (3 over 2 ranks); the stride lays
+    the dims out in t's own order."""
+    stride, step = [0] * t.ndim, 1
+    for i in sorted(range(t.ndim), key=lambda i: (t.stride(i), t.shape[i])):
+        stride[i], step = step, step * shape[i]
+    return DTensor.from_local(t, mesh, placements, run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
 
 
 def vocab_parallel_embed(table: DTensor, tokens):
@@ -166,13 +196,155 @@ def replicated_region(fn, p: dict, x: DTensor, *args):
 def local_attention(fn, q: DTensor, k, v, *args):
     """fn(q, k, v, *args) -> (B, S, H, D) on each rank's shards. q (B, S,
     H, D) and k, v (B, S, KV, D) take one placement: per mesh dim the
-    batch shard of q, or its head shard where KV divides by the mesh dim's
-    size (query head h's kv head h // G stays on its rank), else
+    batch shard of q, or its head shard where the KV heads split evenly
+    over it (query head h's kv head h // G stays on its rank), else the
+    sequences split over it where they divide evenly (attention is
+    independent per sequence: no rank computes another's heads), else
     Replicate. The result keeps that placement."""
     mesh = q.device_mesh
-    kv = k.shape[2]
-    pl = [p if p.is_shard(0) or (p.is_shard(2) and kv % mesh.size(i) == 0) else Replicate()
-          for i, p in enumerate(q.placements)]
+    b, kv = q.shape[0], k.shape[2]
+    pl, bsplit, hsplit = [], 1, 1
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        if p.is_shard(0):
+            pl.append(p)
+            bsplit *= n
+        elif p.is_shard(2) and kv % (hsplit * n) == 0:
+            pl.append(p)
+            hsplit *= n
+        elif b % (bsplit * n) == 0:
+            pl.append(Shard(0))
+            bsplit *= n
+        else:
+            pl.append(Replicate())
     q, k, v = (_as_dtensor(t, mesh).redistribute(mesh, pl) for t in (q, k, v))
     out = fn(q.to_local(), k.to_local(), v.to_local(), *args)
-    return DTensor.from_local(out, mesh, pl, run_check=False)
+    return _from_local(out, mesh, pl, q.shape)
+
+
+def write_slots(cache: DTensor, new, pos) -> None:
+    """cache (B, KV, S, D), a DTensor, <- new (B, KV, K, D) at per-sequence
+    slots pos[b] .. pos[b] + K - 1, in place, on each rank's shard: new and
+    pos are placed as the cache's batch and head shards (replicated over the
+    sequence), and a rank keeps its old rows where a slot falls outside its
+    slice of S. Shapes stay fixed, so no value is read on the host."""
+    mesh = cache.device_mesh
+    pl = [Replicate() if p.is_shard(2) else p for p in cache.placements]
+    new_l = _as_dtensor(new, mesh).redistribute(mesh, pl).to_local()
+    pos_l = _as_dtensor(pos, mesh).redistribute(mesh, _batch_placements(pl, 1)).to_local()
+    local = cache.to_local()
+    _, offset = compute_local_shape_and_global_offset(cache.shape, mesh, cache.placements)
+    b, _, kk, _ = new_l.shape
+    start = pos_l.long()[:, None] - offset[2]                     # (B, 1), local
+    slots = (start + torch.arange(kk, device=local.device)[None, :]).clamp(
+        0, max(local.shape[2] - 1, 0))
+    # a slot clamped onto the shard's edge may be one that another token
+    # writes: every write to a slot carries the token that belongs there
+    # (or the old row), so duplicate indices agree
+    tok = slots - start
+    inside = (tok >= 0) & (tok < kk)
+    rows = torch.arange(b, device=local.device)[:, None]
+    vals = new_l.permute(0, 2, 1, 3)[rows, tok.clamp(0, kk - 1)]  # (B, K, KV, D)
+    local[rows, :, slots] = torch.where(inside[..., None, None], vals, local[rows, :, slots])
+
+
+def local_decode_attention(q, k_cache: DTensor, v_cache: DTensor, pos, neg_inf: float):
+    """One query token q (B, 1, H, D) against caches (B, KV, S, D) placed as
+    DTensors (batch and sequence shards), mask kpos <= pos -> (B, 1, H, D),
+    placed as the caches' batch. The plain decode's math (fp32 scores and
+    softmax, probabilities cast to q's dtype before the value product), with
+    the softmax's max and sum and the value product reduced over the
+    sequence shards."""
+    mesh = k_cache.device_mesh
+    pl = _batch_placements(k_cache.placements, 1)
+    groups = [mesh.get_group(i) for i, p in enumerate(k_cache.placements) if p.is_shard(2)]
+    _, offset = compute_local_shape_and_global_offset(k_cache.shape, mesh, k_cache.placements)
+    start = offset[2]
+    out_shape = q.shape
+    q = _as_dtensor(q, mesh).redistribute(mesh, pl).to_local()
+    pos = _as_dtensor(pos, mesh).redistribute(mesh, pl).to_local()
+    k, v = k_cache.to_local(), v_cache.to_local()
+    b, kvh, s_local, d = k.shape
+    h = q.shape[2]
+    qh = q[:, 0].reshape(b, kvh, h // kvh, d)
+    scores = torch.einsum("bqgd,bqtd->bqgt", qh, k).float() * (d ** -0.5)
+    kpos = start + torch.arange(s_local, device=k.device)
+    scores = torch.where((kpos[None, :] <= pos[:, None])[:, None, None], scores, neg_inf)
+    m = scores.amax(dim=-1, keepdim=True)
+    for g in groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+    p = torch.exp(scores - m)
+    total = p.sum(dim=-1, keepdim=True)
+    for g in groups:
+        dist.all_reduce(total, group=g)
+    out = torch.einsum("bqgt,bqtd->bqgd", (p / total).to(q.dtype), v)
+    for g in groups:
+        dist.all_reduce(out, group=g)
+    return _from_local(out.reshape(b, 1, h, d), mesh, pl, out_shape)
+
+
+def per_head_region(fn, like: DTensor, heads: int, args, dims, out_dims):
+    """fn(*args) on each rank's shards, for a function that is independent
+    per sequence and per head. Per mesh dim the plan follows `like` (B,
+    ...): its batch shard where it has one, else the heads where `heads`
+    divides the mesh dim's size, else nothing. dims[i] is (batch dim, head
+    dim) of args[i] (None where it has none; an arg that is not a tensor
+    passes as it is); out_dims the same of fn's results, which return as
+    DTensors so placed. An arg replicated over a mesh dim that splits the
+    work (a_log over the batch shards, B over the heads) gets only this
+    rank's part of its gradient: it leaves as Partial there, and DTensor's
+    autograd sums it."""
+    mesh = like.device_mesh
+    plan, split = [], 1
+    for i, p in enumerate(like.placements):
+        if p.is_shard(0):
+            plan.append("batch")
+        elif heads % (split * mesh.size(i)) == 0:     # even shards of the heads
+            plan.append("heads")
+            split *= mesh.size(i)
+        else:
+            plan.append(None)
+
+    def placed(bd, hd):
+        return [Shard(bd) if k == "batch" and bd is not None
+                else Shard(hd) if k == "heads" and hd is not None else Replicate()
+                for k in plan]
+
+    def shard_of(a, d):
+        pl = placed(*d)
+        grad = [Partial() if k is not None and not x.is_shard() else x for x, k in zip(pl, plan)]
+        return _as_dtensor(a, mesh).redistribute(mesh, pl).to_local(grad_placements=grad)
+
+    outs = fn(*(shard_of(a, d) if isinstance(a, torch.Tensor) else a
+                for a, d in zip(args, dims)))
+
+    def whole(o, bd, hd):
+        shape = list(o.shape)
+        if bd is not None and "batch" in plan:
+            shape[bd] = like.shape[0]
+        if hd is not None and "heads" in plan:
+            shape[hd] = heads
+        return shape
+
+    return tuple(_from_local(o, mesh, placed(*d), whole(o, *d)) for o, d in zip(outs, out_dims))
+
+
+def replicate_residual(x: DTensor) -> DTensor:
+    """x (B, ...) placed by its batch shards alone: Replicate on every other
+    mesh dim (a partial sum reduced, another dim's shard gathered)."""
+    return x.redistribute(x.device_mesh, _batch_placements(x.placements, 1))
+
+
+def whole_heads(t: DTensor, heads: int) -> DTensor:
+    """t (..., heads * head_dim) with its last dim gathered where its shards
+    would cut a head (40 heads over 16 ranks): DTensor cannot split a
+    sharded dim into uneven head shards, XLA pads them."""
+    last = t.ndim - 1
+    n = 1
+    for i, p in enumerate(t.placements):
+        if p.is_shard(last):
+            n *= t.device_mesh.size(i)
+    if heads % n == 0:
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_shard(last) else p
+                                          for p in t.placements])

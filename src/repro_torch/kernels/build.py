@@ -151,6 +151,27 @@ class CudaKernel:
         self.launches += 1
 
 
+def query(source: str, symbol: str, *args: int) -> list[int]:
+    """A library's plain C query `symbol(int..., long long* out)` of its
+    launch configuration (common.cuh rt_query): [dynamic shared bytes,
+    static shared bytes, registers a thread, threads a block]. Builds the
+    library at first use; raises on a nonzero cudaError_t."""
+    lib_path = _lib_path(source)
+    if not lib_path.exists():
+        build_all([source])
+    lib = ctypes.CDLL(str(lib_path))
+    fn = getattr(lib, symbol)
+    fn.argtypes = [INT] * len(args) + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 4)()
+    rc = fn(*args, out)
+    if rc != 0:
+        lib.rt_error_string.restype = ctypes.c_char_p
+        raise RuntimeError(f"{symbol}{args} failed: cuda error {rc} "
+                           f"({lib.rt_error_string(rc).decode()})")
+    return list(out)
+
+
 def stream_ptr(t) -> int:
     """The current CUDA stream of tensor `t`'s device, as an int for ctypes."""
     return torch.cuda.current_stream(t.device).cuda_stream

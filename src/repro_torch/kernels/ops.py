@@ -13,6 +13,15 @@ Dispatch, by `impl`:
 There is no silent fallback: the plain version runs on the card only when
 asked for by name.
 
+Shared memory (kernels/smem.py), as the reference's VMEM guards: of the six
+kernels only the paged decode has a shape limit on the card (a block holds
+its split's page ids beside the K/V ring, so a split of more than ~33k
+pages, bf16 at head_dim 128, cannot launch). Its CUDA wrapper refuses such
+a split before the launch, in the reference's words, where the split is
+known. The prefill kernels tile the query rows 64 a block, so the
+reference's guard on chunk_tokens x group has no counterpart; the other
+kernels' shared memory is fixed by their template arguments.
+
 No kernel has a backward pass, as no TPU kernel of the reference has one: the
 reference trains with use_kernels=False. So every entry here refuses an input
 that requires a gradient while autograd records, on either device and under

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import smem
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import attend_block
 
@@ -74,6 +75,9 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, tables, lengths, k_new,
                     ("k_new", k_new), ("v_new", v_new)):
         build.check_aligned(name, t)
     n, chunk, ws, tickets = dec.split_launch(q, kvh, nb * bs)
+    # a split's page ids sit beside the K/V ring in shared memory
+    smem.paged_decode_smem(h // kvh, d, bs, chunk, q.element_size()).assert_fits(
+        "paged_decode_attention")
     o = torch.empty_like(q)
     DECODE_KERNEL.launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),

@@ -17,7 +17,12 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.tensor_parallel import local_attention
+from repro_torch.distributed.tensor_parallel import (
+    local_attention,
+    local_decode_attention,
+    whole_heads,
+    write_slots,
+)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.decode_attention import NEG_INF, decode_attention_plain
 from repro_torch.kernels.flash_attention import attend_block
@@ -82,17 +87,28 @@ def multihead_attention(q, k, v, cfg_attn: AttentionConfig,
 def decode_attention(q, k_cache, v_cache, pos,
                      exec_cfg: ExecConfig = DEFAULT_EXEC):
     """Single-token attention against a (padded) KV cache. q: (B, 1, H, D),
-    caches (B, KV, S_max, D), pos: (B,) current lengths (q is at pos)."""
+    caches (B, KV, S_max, D), pos: (B,) current lengths (q is at pos).
+    Caches placed on a mesh (the dry-run's decode) attend on each rank's
+    sequence shard."""
+    if isinstance(k_cache, DTensor):
+        return local_decode_attention(q, k_cache, v_cache, pos, NEG_INF)
     if exec_cfg.use_kernels:
         return kops.decode_attention(q, k_cache, v_cache, pos, impl=exec_cfg.impl)
     return decode_attention_plain(q, k_cache, v_cache, pos)
 
 
+def _heads(t, heads: int, head_dim: int):
+    """(B, S, heads * head_dim) -> (B, S, heads, head_dim); a DTensor whose
+    shards would cut a head is gathered first."""
+    if isinstance(t, DTensor):
+        t = whole_heads(t, heads)
+    return t.reshape(*t.shape[:2], heads, head_dim)
+
+
 def _qkv(p: dict, x, a: AttentionConfig):
-    b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, a.num_heads, a.head_dim)
-    k = (x @ p["wk"]).reshape(b, s, a.num_kv_heads, a.head_dim)
-    v = (x @ p["wv"]).reshape(b, s, a.num_kv_heads, a.head_dim)
+    q = _heads(x @ p["wq"], a.num_heads, a.head_dim)
+    k = _heads(x @ p["wk"], a.num_kv_heads, a.head_dim)
+    v = _heads(x @ p["wv"], a.num_kv_heads, a.head_dim)
     return q, k, v
 
 
@@ -109,7 +125,10 @@ def _no_m_rope(a: AttentionConfig, what: str) -> None:
 
 def _write_at(cache, new, pos):
     """cache (B, KV, S, D) <- new (B, KV, K, D) at per-sequence slots
-    pos[b] .. pos[b] + K - 1, in place."""
+    pos[b] .. pos[b] + K - 1, in place (a sharded cache on each rank's
+    shard)."""
+    if isinstance(cache, DTensor):       # the dry-run's decode on a mesh
+        return write_slots(cache, new, pos)
     b, _, kk, _ = new.shape
     rows = torch.arange(b, device=cache.device)[:, None]
     slots = pos.long()[:, None] + torch.arange(kk, device=cache.device)[None, :]

@@ -16,7 +16,11 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.tensor_parallel import replicated_region, vocab_parallel_embed
+from repro_torch.distributed.tensor_parallel import (
+    replicate_residual,
+    replicated_region,
+    vocab_parallel_embed,
+)
 from repro_torch.models.config import ModelConfig, MoEConfig
 
 
@@ -89,7 +93,13 @@ def init_rmsnorm(d: int, device) -> torch.Tensor:
 
 def rmsnorm(g, x, eps: float = 1e-5):
     """fp32 only inside the mean-square reduction; the normalize multiply
-    stays in the input dtype."""
+    stays in the input dtype. A DTensor input (a step on a mesh) is first
+    placed by its batch shards alone, replicated elsewhere (a partial sum
+    reduced), as Megatron's layers feed their column-parallel products:
+    left to DTensor, a later layer's products may gather their weights and
+    compute whole on every rank."""
+    if isinstance(x, DTensor):
+        x = replicate_residual(x)
     dt = x.dtype
     ms = x.float().square().mean(dim=-1, keepdim=True)
     scale = torch.rsqrt(ms + eps).to(dt)

@@ -16,7 +16,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.tensor_parallel import per_head_region
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.mamba2_ssd import DECAY_CLAMP, ssd_chunked_math
 from repro_torch.models.config import ModelConfig
@@ -83,7 +85,13 @@ def causal_conv(xbc, w, b, prev=None):
 def ssd_chunked(xh, b_in, c_in, dt, a_log, state0=None, chunk: int = 128):
     """Chunked SSD scan (the use_kernels=False math), intra-chunk tensors in
     the activation dtype. xh: (B, T, H, P), b_in/c_in: (B, T, N), dt:
-    (B, T, H) fp32, state0: (B, H, N, P) fp32 or None -> (y fp32, state)."""
+    (B, T, H) fp32, state0: (B, H, N, P) fp32 or None -> (y fp32, state).
+    DTensor inputs (a step on a mesh) run on each rank's shards."""
+    if isinstance(xh, DTensor):
+        bh, b_, h = (0, 2), (0, None), (None, 0)
+        return per_head_region(ssd_chunked_math, xh, xh.shape[2],
+                               (xh, b_in, c_in, dt, a_log, state0, chunk),
+                               (bh, b_, b_, bh, h, (0, 1), (None, None)), (bh, (0, 1)))
     return ssd_chunked_math(xh, b_in, c_in, dt, a_log, state0, chunk)
 
 

@@ -22,7 +22,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.tensor_parallel import per_head_region
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.rwkv6_wkv import CHUNK, wkv_chunked_plain
 from repro_torch.models.config import ModelConfig
@@ -99,13 +101,25 @@ def _decay(p: dict, xw):
 
 def wkv_chunked(r, k, v, logw, u, state0=None, chunk: int = CHUNK):
     """Chunked WKV6 (the use_kernels=False math). r/k/v/logw: (B, T, H, N),
-    u: (H, N), state0: (B, H, N, N) fp32 or None -> (y fp32, final state)."""
+    u: (H, N), state0: (B, H, N, N) fp32 or None -> (y fp32, final state).
+    DTensor inputs (a step on a mesh) run on each rank's shards."""
+    if isinstance(r, DTensor):
+        bh, b_h, h = (0, 2), (0, 1), (None, 0)
+        return per_head_region(wkv_chunked_plain, r, r.shape[2],
+                               (r, k, v, logw, u, state0, chunk),
+                               (bh, bh, bh, bh, h, b_h, (None, None)), (bh, b_h))
     return wkv_chunked_plain(r, k, v, logw, u, state0, chunk)
 
 
 def wkv_step(r, k, v, logw, u, state):
     """One-token WKV6 recurrence (decode). r/k/v/logw: (B, H, N), state:
-    (B, H, N, N) fp32 indexed [key_dim, value_dim] -> (y fp32, state)."""
+    (B, H, N, N) fp32 indexed [key_dim, value_dim] -> (y fp32, state).
+    DTensor inputs (a step on a mesh) run on each rank's shards: DTensor's
+    placement planner takes minutes over these einsums on a 3-D mesh."""
+    if isinstance(r, DTensor):
+        bh, h = (0, 1), (None, 0)
+        return per_head_region(wkv_step, r, r.shape[1], (r, k, v, logw, u, state),
+                               (bh, bh, bh, bh, h, bh), (bh, bh))
     rf, kf, vf = r.float(), k.float(), v.float()
     kv = torch.einsum("bhn,bhm->bhnm", kf, vf)
     y = torch.einsum("bhn,bhnm->bhm", rf, state + u[..., None] * kv)

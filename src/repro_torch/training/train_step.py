@@ -52,9 +52,28 @@ def value_and_grad(params, batch, cfg: ModelConfig, exec_cfg: ExecConfig):
     return loss.detach(), _unflatten(params, grads)
 
 
+def _chunks(v, n: int, dim: int) -> tuple:
+    """n equal slices of v along dim. A DTensor is sliced on each rank's
+    shard, so a batch sharded over the data axes stays so (DTensor would
+    gather a sharded dim to split it): microbatch i holds every rank's i-th
+    slice, and the microbatches still cover the batch once."""
+    if not isinstance(v, DTensor):
+        return torch.chunk(v, n, dim=dim)
+    local = v.to_local()
+    if local.shape[dim] % n or v.shape[dim] % n:
+        raise ValueError(f"a batch of {v.shape[dim]} ({local.shape[dim]} on this rank) "
+                         f"does not split into {n} microbatches")
+    shape = list(v.shape)
+    shape[dim] //= n
+    stride = torch.empty(shape, device="meta").stride()
+    return tuple(DTensor.from_local(c, v.device_mesh, v.placements, run_check=False,
+                                    shape=torch.Size(shape), stride=stride)
+                 for c in torch.chunk(local, n, dim=dim))
+
+
 def _split(batch: dict, n: int) -> list[dict]:
     """n microbatches of batch; positions (3, B, S) split on dim 1."""
-    parts = {k: torch.chunk(v, n, dim=1 if k == "positions" else 0) for k, v in batch.items()}
+    parts = {k: _chunks(v, n, 1 if k == "positions" else 0) for k, v in batch.items()}
     return [{k: parts[k][i] for k in batch} for i in range(n)]
 
 

@@ -634,3 +634,34 @@ def test_first_use_build_saves_its_ptxas_log(gen, tmp_path, monkeypatch):
     log = build.ptxas_log(dec.KERNEL.source)
     assert lib.with_suffix(".ptxas.txt").read_text() == log
     assert "Compiling entry function" in log and "spill stores" in log
+
+
+def test_smem_estimates_equal_what_each_library_reports(gen):
+    """kernels/smem.py against each library's own query (common.cuh
+    rt_query) for every instantiation its launchers reach: the dynamic
+    shared bytes the launcher passes, the static bytes and threads a block,
+    and a register count that fits an SM."""
+    from repro_torch.kernels import build, smem
+
+    for label, source, symbol, args, est in smem.cases():
+        dyn, static, regs, threads = build.query(source, symbol, *args)
+        assert (dyn, static, threads) == (est.dynamic_bytes, est.static_bytes,
+                                          est.threads), label
+        assert smem.regs_fit(regs, threads), (label, regs)
+
+
+def test_paged_decode_front_door_refuses_a_split_beyond_shared_memory(gen):
+    """32 sequences x 8 kv heads fill the card's SMs with one split each, so
+    a table of 40000 pages puts 40002 page ids beside the K/V ring: the call
+    through the front door is refused before any launch (by the CUDA wrapper,
+    once it knows the split), in the reference's words."""
+    b, kv, bs, d, nb = 32, 8, 16, 128, 40000
+    q = _rand(gen, b, 1, kv, d, dtype=torch.bfloat16)
+    pages = _rand(gen, 2, kv, bs, d, dtype=torch.bfloat16)
+    tables = torch.zeros(b, nb, dtype=torch.int32, device="cuda")
+    lengths = torch.full((b,), 5, dtype=torch.int32, device="cuda")
+    new = _rand(gen, b, 1, kv, d, dtype=torch.bfloat16)
+    before = pag.DECODE_KERNEL.launches
+    with pytest.raises(ValueError, match="paged_decode_attention: shared-memory"):
+        ops.paged_decode_attention(q, pages, pages, tables, lengths, new, new, max_len=6)
+    assert pag.DECODE_KERNEL.launches == before

@@ -42,13 +42,17 @@ def _finish(proc, what):
     return out
 
 
+# batching_burst prints its table of 2 policies in 8 lines; the others more
+_MIN_LINES = {"batching_burst": 8}
+
+
 @pytest.mark.parametrize("name", ["serve_disaggregated", "carbon_planner", "fleet_allocate",
-                                  "autoscale"])
+                                  "autoscale", "batching_burst", "priority_mix"])
 def test_planning_example_prints_the_reference_output(name):
     port = _start(["-c", _BLOCKED, str(EXAMPLES / f"torch_{name}.py")])
     ref = _start([str(EXAMPLES / f"{name}.py")])      # both run at once
     got, want = _finish(port, f"torch_{name}.py"), _finish(ref, f"{name}.py")
-    assert len(want.splitlines()) > 10
+    assert len(want.splitlines()) >= _MIN_LINES.get(name, 11)
     assert got.splitlines() == want.splitlines()
 
 
@@ -58,6 +62,36 @@ def test_quickstart_serves_every_kind_on_the_cpu():
     rows = [ln.split()[0] for ln in out.splitlines()[1:5]]
     assert rows == ["standalone", "spec", "dpd+v100", "dsd+t4"]
     assert "token-identical: True (forwards on cpu)" in out
+
+
+_ELASTIC = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.argv = ["torch_train_elastic.py", *sys.argv[1:]]
+runpy.run_path(%r, run_name="__main__")
+""" % str(EXAMPLES / "torch_train_elastic.py")
+
+
+def test_train_elastic_survives_the_failure_on_4_gloo_ranks():
+    """examples/torch_train_elastic.py as torchrun would start it, 4 ranks on
+    gloo: 2 drop at step 6, the other 2 restore the step-6 checkpoint on a
+    1 x 2 mesh and go on to step 12 with the loss lower than at step 1."""
+    from _torch_dist import run_ranks
+
+    outs = run_ranks(_ELASTIC, 4, "--device", "cpu", "--steps", "12", "--fail-at", "6",
+                     "--ckpt-every", "3", "--print-every", "1", timeout=300)
+    lines = outs[0].splitlines()
+    assert lines[0] == "mesh {'data': 2, 'model': 2}; training glm4-9b-reduced (1.2M params)"
+    steps = [ln.split() for ln in lines if ln.startswith("  step")]
+    assert [int(s[1]) for s in steps] == list(range(1, 13))
+    assert [" ".join(s[4:]) for s in steps] == (["mesh {'data': 2, 'model': 2}"] * 6
+                                                + ["mesh {'data': 1, 'model': 2}"] * 6)
+    assert "survived the step-6 failure (4 -> 2 ranks), mesh now {'data': 1, 'model': 2}" \
+        in lines
+    first, last = (float(x) for x in lines[-1].split()[1:4:2])
+    assert lines[-1].endswith("over 12 steps") and last < first
+    assert all(out == "" for out in outs[1:])   # rank 0 prints
 
 
 def _sources():
@@ -77,4 +111,7 @@ def test_no_import_of_the_reference_or_jax_in_the_port():
             found += [f"{path.relative_to(ROOT)}:{node.lineno} {n}" for n in names
                       if n.split(".")[0] in ("repro", "jax", "jaxlib", "ml_dtypes")]
     assert len(_sources()) > 40
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    assert {"src/repro_torch/launch/dryrun.py", "src/repro_torch/kernels/smem.py",
+            "src/repro_torch/configs/__init__.py"} <= scanned
     assert not found, found
