@@ -129,8 +129,10 @@ no result:
            musicgen-medium (all 48, on frame embeddings); qwen2-vl-72b is
            left to the CPU tests (its embedding and head alone are 2.49 B
            params, ~40 GB of training state). Through a one-rank nccl group:
-           make_sharded_train_step on a (1, 1) mesh against train_step, the
-           compressed step, and `launch.train --arch llama-300m --full` (12
+           make_sharded_train_step on a (1, 1) mesh against train_step (for
+           llama-300m, and for qwen2-moe-a2.7b (2 layers) with the
+           sequence-parallel carry and ep_axes=("data",), whose all-to-all
+           is then an identity but runs over nccl), the compressed step, and `launch.train --arch llama-300m --full` (12
            steps, a checkpoint every 6 under build/train_ckpt, removed after)
            whose step-6 checkpoint a second trainer restores: it must print
            the launcher's losses for steps 7-12, and its final state is
@@ -139,10 +141,13 @@ no result:
            training prints "training: not in this tree".
   dryrun   repro_torch.launch.dryrun on the host, over fake process groups
            (nothing allocated; meta tensors as DTensors): full-depth proof
-           cells (llama-7b and qwen2-moe-a2.7b train_4k on the (16, 16) pod,
-           zamba2-2.7b long_500k on the (2, 16, 16) multi-pod mesh,
-           musicgen-medium decode_32k), each record printed with its host
-           seconds; its prediction for the training phase's own cell (one
+           cells (llama-7b, qwen2-moe-a2.7b and llama4-scout-17b-a16e
+           train_4k on the (16, 16) pod, sequence-parallel, llama4-scout's
+           16 experts expert-parallel over "data"; zamba2-2.7b long_500k on
+           the (2, 16, 16) multi-pod mesh, musicgen-medium decode_32k), each
+           record printed with its host seconds and its seq_parallel and
+           expert_parallel_dispatch; qwen2-moe's train cell must fit the
+           card's memory; its prediction for the training phase's own cell (one
            AdamW step on a (1, 1) mesh) beside what the card measured there:
            peak bytes against max_memory_allocated (within DRYRUN_PEAK) and
            counted FLOPs against the model-FLOPs formula; kernels/smem.py
@@ -1819,6 +1824,11 @@ TRAIN_STEPS, TRAIN_LR = 6, 1e-4
 # head alone are 2.49 B params, ~40 GB of training state
 TRAIN_FAMILIES = (("qwen2-moe-a2.7b", 2), ("rwkv6-7b", 2), ("zamba2-2.7b", 6),
                   ("musicgen-medium", None))
+# the sharded step with the sequence-parallel carry and the expert-parallel
+# dispatch, on one rank: qwen2-moe cut as TRAIN_FAMILIES cuts it, 2 x 1024
+# tokens in groups of 64 (32 groups, so the groups stay on the data axis, as
+# on every production cell, and go through the all-to-all)
+SP_ARCH, SP_LAYERS, SP_GROUP = "qwen2-moe-a2.7b", 2, 64
 # the restart check: the launcher's defaults (8 x 64 tokens, lr 1e-3)
 TRAIN_CKPT_ARCH, TRAIN_CKPT_STEPS, TRAIN_CKPT_EVERY = "llama-300m", 12, 6
 #   the restarted run's losses against the launcher's printed ones (4
@@ -2080,7 +2090,7 @@ def _train_distributed(card):
     from repro_torch.models import backbone
     from repro_torch.models.layers import TRAIN_EXEC
     from repro_torch.training import train_step as ts
-    from repro_torch.training.optimizer import AdamWConfig, init_opt_state, tree_leaves
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
 
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -2094,34 +2104,8 @@ def _train_distributed(card):
         batch = _batch(cfg, 8, 256)
         opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1)
         mesh = make_host_mesh(1, 1, device_type="cuda")
-        sp = ts.shard_params(copy.deepcopy(params), mesh)
-        so = ts.shard_opt_state(init_opt_state(params), params, mesh)
-        sharded = ts.make_sharded_train_step(mesh, cfg, opt_cfg, TRAIN_EXEC)
-        times = {}
-        for name, fn in (("train_step", lambda: ts.train_step(params, init_opt_state(params),
-                                                             batch, cfg, opt_cfg, TRAIN_EXEC)),
-                         ("sharded (1, 1)", lambda: sharded(sp, so, ts.shard_batch(batch, mesh)))):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            times[name] = (time.perf_counter() - t, out)
-        (_, (p1, _, m1)), (_, (p2, _, m2)) = times["train_step"], times["sharded (1, 1)"]
-        rel = abs(float(m2["loss"]) - float(m1["loss"])) / float(m1["loss"])
-        d = [(a.float() - b.full_tensor().float()).abs() / opt_cfg.lr
-             for a, b in zip(tree_leaves(p1), tree_leaves(p2))]
-        diff = max(float(x.max()) for x in d)
-        off = sum(int((x > 0.1).sum()) for x in d) / sum(x.numel() for x in d)
-        print(f"sharded step on a (1, 1) nccl mesh against train_step ({TRAIN_CKPT_ARCH}, 8 x "
-              f"256): loss rel {rel:.3e} (tol {TOL_SHARDED['loss']:g}), params max diff "
-              f"{diff:.3f} lr (tol {TOL_SHARDED['params_lr']:g}), {off:.2e} of them off by "
-              f"more than 0.1 lr (tol {TOL_SHARDED['off_share']:g}); wall "
-              f"{times['train_step'][0]:.3f} s and {times['sharded (1, 1)'][0]:.3f} s (first "
-              f"calls)", flush=True)
-        if rel > TOL_SHARDED["loss"] or diff > TOL_SHARDED["params_lr"] or \
-                off > TOL_SHARDED["off_share"]:
-            raise RuntimeError("the sharded step disagrees with train_step")
-        del sp, so, p1, p2, times
+        _sharded_vs_plain(f"{TRAIN_CKPT_ARCH}, 8 x 256", copy.deepcopy(params), batch, cfg,
+                          opt_cfg, TRAIN_EXEC, mesh)
         step = ts.make_compressed_train_step(cfg, opt_cfg, TRAIN_EXEC)
         pc = copy.deepcopy(params)
         pc, _, _, mc = step(pc, init_opt_state(pc), ts.init_residual(pc), batch)
@@ -2131,9 +2115,78 @@ def _train_distributed(card):
               f"{float(mc['grad_norm']):.4f}", flush=True)
         del params, pc, batch
         torch.cuda.empty_cache()
+        # the sequence-parallel carry and the expert-parallel dispatch: on one
+        # rank the all-to-all is an identity, but every collective and
+        # autograd function of the region runs on CUDA tensors over nccl
+        if _has_carry():
+            moe = dataclasses.replace(get_config(SP_ARCH), num_layers=SP_LAYERS)
+            gen.manual_seed(0)
+            ex = dataclasses.replace(TRAIN_EXEC, carry_spec=(("data",), "model", None),
+                                     ep_axes=("data",), moe_group_size=SP_GROUP)
+            _sharded_vs_plain(f"{SP_ARCH}, {SP_LAYERS} layers, 2 x 1024 in groups of "
+                              f"{SP_GROUP}, carry_spec {ex.carry_spec}, ep_axes {ex.ep_axes}",
+                              backbone.init_params(gen, moe), _batch(moe, 2, 1024), moe,
+                              AdamWConfig(lr=1e-3, warmup_steps=1), ex, mesh)
+            torch.cuda.empty_cache()
+        else:
+            print("sequence-parallel carry: not in this tree", flush=True)
         _train_restart(cfg)
     finally:
         dist.destroy_process_group()
+
+
+def _has_carry() -> bool:
+    """Whether the imported port has the sequence-parallel carry (a tree
+    given by --tree may predate it)."""
+    from repro_torch.models.layers import ExecConfig
+
+    return "carry_spec" in {f.name for f in dataclasses.fields(ExecConfig)}
+
+
+def _sharded_vs_plain(what, params, batch, cfg, opt_cfg, ex, mesh):
+    """One make_sharded_train_step on `mesh` against one train_step from the
+    same params and batch, held within TOL_SHARDED. The plain step runs
+    first and its params wait on the host, so one training state at a time
+    is on the card."""
+    import copy
+
+    import torch
+
+    from repro_torch.training import train_step as ts
+    from repro_torch.training.optimizer import init_opt_state, tree_leaves, tree_map
+
+    walls = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+        return out
+
+    p1 = copy.deepcopy(params)
+    p1, _, m1 = timed("plain", lambda: ts.train_step(p1, init_opt_state(p1), batch, cfg,
+                                                     opt_cfg, ex))
+    p1 = tree_map(lambda t: t.cpu(), p1)
+    torch.cuda.empty_cache()
+    sp = ts.shard_params(params, mesh)
+    so = ts.shard_opt_state(init_opt_state(params), params, mesh)
+    step = ts.make_sharded_train_step(mesh, cfg, opt_cfg, ex)
+    p2, _, m2 = timed("sharded", lambda: step(sp, so, ts.shard_batch(batch, mesh)))
+    rel = abs(float(m2["loss"]) - float(m1["loss"])) / float(m1["loss"])
+    d = [(a.float() - b.full_tensor().float().cpu()).abs() / opt_cfg.lr
+         for a, b in zip(tree_leaves(p1), tree_leaves(p2))]
+    diff = max(float(x.max()) for x in d)
+    off = sum(int((x > 0.1).sum()) for x in d) / sum(x.numel() for x in d)
+    print(f"sharded step on a (1, 1) nccl mesh against train_step ({what}): loss rel "
+          f"{rel:.3e} (tol {TOL_SHARDED['loss']:g}), params max diff {diff:.3f} lr (tol "
+          f"{TOL_SHARDED['params_lr']:g}), {off:.2e} of them off by more than 0.1 lr (tol "
+          f"{TOL_SHARDED['off_share']:g}); wall {walls['plain']:.3f} s and "
+          f"{walls['sharded']:.3f} s (first calls)", flush=True)
+    if rel > TOL_SHARDED["loss"] or diff > TOL_SHARDED["params_lr"] or \
+            off > TOL_SHARDED["off_share"]:
+        raise RuntimeError(f"the sharded step disagrees with train_step ({what})")
 
 
 def _train_restart(cfg):
@@ -2204,6 +2257,7 @@ def _train_restart(cfg):
 # full-depth proof cells of the dry-run on the host: (arch, shape, mesh)
 DRYRUN_CELLS = (("llama-7b", "train_4k", "single_pod"),
                 ("qwen2-moe-a2.7b", "train_4k", "single_pod"),
+                ("llama4-scout-17b-a16e", "train_4k", "single_pod"),
                 ("zamba2-2.7b", "long_500k", "multi_pod"),
                 ("musicgen-medium", "decode_32k", "single_pod"))
 #   the dry-run's peak for the training phase's cell over the card's
@@ -2218,6 +2272,10 @@ DRYRUN_CELLS = (("llama-7b", "train_4k", "single_pod"),
 #   CPU against the 43.09 GiB the training phase measured on an H100
 #   (PERF.md §6)
 DRYRUN_PEAK = (0.9, 1.3)
+# the cell the expert-parallel dispatch and the sequence-parallel carry
+# bring into the card's memory: 143.0 GB a device with the MoE run whole on
+# every rank and the residual replicated over "model" (PERF.md §6)
+DRYRUN_MUST_FIT = ("qwen2-moe-a2.7b", "train_4k", "single_pod")
 
 
 def phase_dryrun(card, dense):
@@ -2239,8 +2297,15 @@ def phase_dryrun(card, dense):
         secs = time.perf_counter() - t
         if rec["status"] != "ok":
             raise RuntimeError(f"dryrun {arch}/{shape}/{mesh_name}: {rec}")
-        print(f"dryrun {arch}/{shape}/{mesh_name}/proof: host {secs:.1f} s; {json.dumps(rec)}",
-              flush=True)
+        print(f"dryrun {arch}/{shape}/{mesh_name}/proof: host {secs:.1f} s; seq_parallel "
+              f"{rec['seq_parallel']}, expert_parallel_dispatch "
+              f"{rec['expert_parallel_dispatch']}, peak {rec['peak_bytes'] / 1e9:.2f} GB of "
+              f"{rec['hbm_bytes'] / 1e9:.2f} ({'fits' if rec['fits_hbm'] else 'does not fit'}); "
+              f"{json.dumps(rec)}", flush=True)
+        if (arch, shape, mesh_name) == DRYRUN_MUST_FIT and _has_carry() and \
+                not rec["fits_hbm"]:
+            raise RuntimeError(f"dryrun {arch}/{shape}/{mesh_name} does not fit the card: "
+                               f"{rec['peak_bytes']} of {rec['hbm_bytes']} bytes")
     # (b) the training phase's cell: one AdamW step of the sharded step on a
     # (1, 1) mesh, remat, microbatches 1
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)

@@ -33,7 +33,9 @@ import math
 from typing import Any
 
 import torch
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import distribute_tensor
+
+from repro_torch.distributed.tensor_parallel import spec_placements
 
 # leaves that stay replicated regardless of shape (small / awkward to split)
 _REPLICATED_NAMES = {
@@ -264,12 +266,7 @@ def placements(spec: tuple, shape: tuple[int, ...], mesh) -> list:
     first replicated, divisible dim instead."""
     if len(spec) == len(shape) + 1:
         spec = zero_variant(spec[1:], shape, mesh) if spec[0] is not None else spec[1:]
-    out = []
-    for axis in mesh_axes(mesh):
-        dims = [i for i, e in enumerate(spec)
-                if e == axis or (isinstance(e, tuple) and axis in e)]
-        out.append(Shard(dims[0]) if dims else Replicate())
-    return out
+    return spec_placements(spec, mesh_axes(mesh))
 
 
 def distribute(t: torch.Tensor, mesh, spec: tuple):

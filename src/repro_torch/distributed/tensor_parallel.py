@@ -26,11 +26,21 @@ the kv projections are sharded).
 
 The MoE routing (top-k, the stable argsort that ranks units within their
 expert, the scatter into capacity slots) has no DTensor rules either, and a
-dispatch group may span the data shards. `replicated_region` runs such a
-function on whole tensors: its inputs are redistributed to Replicate (an
-all-gather of the batch over the data axes and of the expert banks over
-"model"), every rank computes the whole function, and the output returns
-to the input's placements.
+dispatch group may span the data shards. Without a sequence-parallel carry
+(ExecConfig.carry_spec None) `replicated_region` runs such a function on
+whole tensors: its inputs are redistributed to Replicate (an all-gather of
+the batch over the data axes and of the expert banks over "model"), every
+rank computes the whole function, and the output returns to the input's
+placements. With a carry, `expert_parallel_region` is the reference's
+anchored dispatch written over local shards: each rank routes its own
+groups, the dispatch buffers are exchanged expert-major over the
+expert-parallel axes (one all-to-all each way, `_AllToAll`), the experts
+run on each rank's expert and hidden shards, and the partial sums over
+"model" are reduce-scattered onto the carry. `batch_sum_region` runs the
+load-balancing loss's sums on each rank's tokens and adds them up.
+
+`spec_placements` maps a PartitionSpec-like tuple (the reference's
+carry_spec, the sharding rules' specs) to DTensor placements.
 
 The chunked recurrences (WKV, SSD) are independent per sequence and per
 head too, and a chunk loop of small products would pay DTensor's dispatch
@@ -52,13 +62,20 @@ holds them to the plain decode.
 
 The sums pass their gradient through unchanged (each rank's partial term
 gets the whole gradient of the sum); the max is a constant of the
-log-sum-exp and carries none. DTensor's own autograd carries everything
-outside these two functions.
+log-sum-exp and carries none; the all-to-all's gradient takes the reverse
+exchange. Everything else is DTensor's own autograd: a local shard taken
+with `to_local(grad_placements=...)` hands back a gradient that is partial
+over the mesh dims where ranks computed different terms of it, and
+DTensor reduces it (a reduce-scatter where the previous redistribute had
+gathered over that dim).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
@@ -76,6 +93,49 @@ class _SumOver(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """x (n, ...) -> (n, ...) over a process group of n ranks: block j goes
+    to rank j, block r of the result came from rank r. The gradient takes
+    the way back, which is the same exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _all_to_all(x, group):
+    return funcol.wait_tensor(funcol.all_to_all_single(x.contiguous(), None, None, group))
+
+
+def spec_placements(spec: tuple, axis_names) -> list:
+    """A PartitionSpec-like tuple, one entry per tensor dim (None, an axis
+    name or a tuple of names), -> DTensor placements over a mesh whose dims
+    are `axis_names`: per mesh dim, Shard(i) for the tensor dim i that names
+    it, else Replicate()."""
+    out = []
+    for axis in axis_names:
+        dims = [i for i, e in enumerate(spec)
+                if e == axis or (isinstance(e, tuple) and axis in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return out
+
+
+def placed(t: DTensor, placements) -> DTensor:
+    """t redistributed to `placements`; t itself where it is so placed
+    already, so that a gradient arriving as a partial sum reaches the
+    previous redistribute as one (a reduce-scatter there, not an all-reduce
+    here)."""
+    placements = list(placements)
+    if list(t.placements) == placements:
+        return t
+    return t.redistribute(t.device_mesh, placements)
 
 
 def _vocab_dim(t: DTensor, dim: int) -> int | None:
@@ -191,6 +251,147 @@ def replicated_region(fn, p: dict, x: DTensor, *args):
         return out
     # x's shards (a partial sum of x is summed by now)
     return out.redistribute(mesh, [Replicate() if q.is_partial() else q for q in x.placements])
+
+
+def _mesh_dims(mesh, axes) -> list[int]:
+    """The mesh dims of `axes`: None, an axis name or a tuple of names."""
+    if axes is None:
+        return []
+    return [mesh.mesh_dim_names.index(a) for a in (axes if isinstance(axes, tuple) else (axes,))]
+
+
+def _exchange(t, mesh, dims: list[int], back: bool = False):
+    """The expert-major exchange of a dispatch buffer over the mesh dims
+    `dims`, one all-to-all a dim. t (G, E, ...), this rank's groups for
+    every expert -> (n G, E / n, ...), every group of the exchange for this
+    rank's E / n experts (n the dims' sizes' product; the experts chunked
+    as a DTensor's Shard(0) over those dims chunks them). back=True is the
+    way back."""
+    for i in (reversed(dims) if back else dims):
+        n, group = mesh.size(i), mesh.get_group(i)
+        if back:
+            rest = t.shape[1:]
+            t = _AllToAll.apply(t.reshape(n, -1, *rest), group)         # (n, G, E/n, ...)
+            t = t.transpose(0, 1).reshape(t.shape[1], n * rest[0], *rest[1:])
+        else:
+            g, e = t.shape[:2]
+            t = t.reshape(g, n, e // n, *t.shape[2:]).transpose(0, 1)    # (n, G, E/n, ...)
+            t = _AllToAll.apply(t, group).reshape(n * g, e // n, *t.shape[3:])
+    return t
+
+
+def expert_parallel_region(body, p: dict, x: DTensor, exec_cfg, num_experts: int):
+    """The MoE over x (B, S, D) under a sequence-parallel carry
+    (exec_cfg.carry_spec, e.g. (("data",), "model", None)), returned placed
+    as the carry. body(p, xg, experts) is the MoE over groups xg (G, Tg, D)
+    of local tensors; it calls experts(ein, fn) to run the expert products
+    fn on its dispatch buffer ein (G, E, C, D).
+
+    A group is `moe_group_size` contiguous tokens. The groups stay on the
+    data axes when their count is a multiple of 32 (the reference's rule)
+    and they fall whole into the batch shards (true of every production
+    cell); otherwise every rank holds them all. Each rank routes its own
+    groups. With exec_cfg.ep_axes the buffer goes expert-major over those
+    axes (one all-to-all a mesh dim each way; a buffer replicated over them
+    is first split by capacity slots, and the slots gathered back after),
+    so each rank runs its E / ep experts' slots of every group of the
+    exchange on its banks (E / ep, D, F / tp), the FFN hidden dim on
+    "model"; without, the same with no exchange. The expert products and
+    the shared expert are partial sums over "model": the combine, linear in
+    them, takes them as they are, and the sum is reduce-scattered onto the
+    carry (tokens, not capacity slots, cross the wire).
+
+    Gradients: x's local copy gets a partial sum over "model", which the
+    norm's gather that x came through reduce-scatters onto the carry; an
+    expert bank's is partial over the group axes that do not shard its
+    experts, the shared expert's over the group axes, the router's over
+    the group axes and "model"."""
+    mesh = x.device_mesh
+    nd = mesh.ndim
+    carry = spec_placements(exec_cfg.carry_spec, mesh.mesh_dim_names)
+    mdim = mesh.mesh_dim_names.index(exec_cfg.carry_spec[1])
+    dp = _mesh_dims(mesh, exec_cfg.carry_spec[0])
+    ep = _mesh_dims(mesh, exec_cfg.ep_axes)
+    n_dp = math.prod(mesh.size(i) for i in dp)
+    n_ep = math.prod(mesh.size(i) for i in ep)
+    if any(i not in dp for i in ep) or num_experts % n_ep:
+        raise ValueError(f"ep_axes {exec_cfg.ep_axes} must be data axes of the carry "
+                         f"{exec_cfg.carry_spec} whose size divides {num_experts} experts")
+    b, s, d = x.shape
+    tg = min(exec_cfg.moe_group_size, b * s)
+    assert (b * s) % tg == 0, f"tokens {b * s} not divisible by group {tg}"
+    g = b * s // tg
+    gdims = dp if g % 32 == 0 and b % n_dp == 0 and (b // n_dp * s) % tg == 0 else []
+    rep = [Replicate()] * nd
+
+    def local(t, target, partial_dims):
+        grad = [Partial() if i in partial_dims else q for i, q in enumerate(target)]
+        return placed(_as_dtensor(t, mesh), target).to_local(grad_placements=grad)
+
+    def bank(hidden):
+        return [Shard(0) if i in ep else Shard(hidden) if i == mdim else Replicate()
+                for i in range(nd)]
+
+    free = [i for i in gdims if i not in ep]
+    pl = {"router": local(p["router"], rep, gdims + [mdim]),
+          "w_gate": local(p["w_gate"], bank(2), free),
+          "w_up": local(p["w_up"], bank(2), free),
+          "w_down": local(p["w_down"], bank(1), free)}
+    if "shared" in p:
+        sh = p["shared"]
+        col = [Shard(1) if i == mdim else Replicate() for i in range(nd)]
+        row = [Shard(0) if i == mdim else Replicate() for i in range(nd)]
+        pl["shared"] = {"w_gate": local(sh["w_gate"], col, gdims),
+                        "w_up": local(sh["w_up"], col, gdims),
+                        "w_down": local(sh["w_down"], row, gdims)}
+    xpl = [Shard(0) if i in gdims else Replicate() for i in range(nd)]
+    xl = local(x, xpl, [mdim])
+    split = [Shard(2) if i in ep else Replicate() for i in range(nd)]
+
+    def experts(ein, fn):
+        if not ep:
+            return fn(ein)
+        cap = ein.shape[2]
+        pad = -cap % n_ep
+        if not gdims:      # replicated over the EP axes: each rank sends its slots
+            ein = DTensor.from_local(F.pad(ein, (0, 0, 0, pad)), mesh, rep, run_check=False)
+            ein = ein.redistribute(mesh, split).to_local()
+        h = _exchange(fn(_exchange(ein, mesh, ep)), mesh, ep, back=True)
+        if not gdims:
+            h = _from_local(h, mesh, split, (*h.shape[:2], cap + pad, h.shape[3]))
+            h = h.redistribute(mesh, rep).to_local()[:, :, :cap]
+        return h
+
+    out = body(pl, xl.reshape(-1, tg, d), experts)        # partial over "model"
+    opl = [Shard(0) if i in gdims else Partial() if i == mdim else Replicate()
+           for i in range(nd)]
+    return placed(_from_local(out.reshape(xl.shape), mesh, opl, x.shape), carry)
+
+
+def batch_sum_region(fn, p: dict, x: DTensor, *args) -> tuple:
+    """fn(p, x, *args) -> a tuple of sums over x's tokens, run on this
+    rank's tokens (x placed by its batch shards, p's leaves replicated) and
+    added up over the mesh dims that shard the batch (forward all-reduce;
+    the gradient passes through: each rank's term gets the whole sum's).
+    Returns replicated DTensors; p's gradients are partial over those
+    dims."""
+    mesh = x.device_mesh
+    xpl = _batch_placements(x.placements, 1)
+    dims = [i for i, q in enumerate(xpl) if q.is_shard()]
+    rep = [Replicate()] * mesh.ndim
+    grad = [Partial() if i in dims else Replicate() for i in range(mesh.ndim)]
+
+    def local(t):
+        if isinstance(t, dict):
+            return {k: local(v) for k, v in t.items()}
+        return placed(_as_dtensor(t, mesh), rep).to_local(grad_placements=grad)
+
+    sums = []
+    for o in fn(local(p), placed(x, xpl).to_local(), *args):
+        for i in dims:
+            o = _SumOver.apply(o, mesh.get_group(i))
+        sums.append(DTensor.from_local(o, mesh, rep, run_check=False))
+    return tuple(sums)
 
 
 def local_attention(fn, q: DTensor, k, v, *args):
@@ -333,6 +534,20 @@ def replicate_residual(x: DTensor) -> DTensor:
     """x (B, ...) placed by its batch shards alone: Replicate on every other
     mesh dim (a partial sum reduced, another dim's shard gathered)."""
     return x.redistribute(x.device_mesh, _batch_placements(x.placements, 1))
+
+
+def row_parallel_input(t, w):
+    """t (..., K), the input of a product with w (K, N): a DTensor t that is
+    replicated on a mesh dim that shards w's rows is sharded there on its
+    last dim (a local slice), so the product is a partial sum and t's
+    gradient is gathered here, before it meets the reshape that made t (a
+    gradient sharded on H x D does not split into heads a shard would cut:
+    40 or 56 over 16). Any other t passes as it is."""
+    if not isinstance(t, DTensor) or not isinstance(w, DTensor):
+        return t
+    last = t.ndim - 1
+    return placed(t, [Shard(last) if q.is_shard(0) and p.is_replicate() else p
+                      for p, q in zip(t.placements, w.placements)])
 
 
 def whole_heads(t: DTensor, heads: int) -> DTensor:

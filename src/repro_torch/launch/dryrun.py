@@ -45,13 +45,17 @@ cost   single-pod only, at 1 and 2 layer units (zamba2's unit is its tap
        layer counts the same (the port has no lax.scan): the extrapolation
        only saves time.
 
-Not ported: the reference's sequence-parallel residual stream (carry_spec)
-and its expert-parallel dispatch layout (ep_axes), so every record says
-"seq_parallel": false and "expert_parallel_dispatch": false, and temp and
-collective bytes of train and prefill cells differ from the reference's by
-design. The MoE dispatch runs on whole tensors on every rank
-(distributed/tensor_parallel.py `replicated_region`). Without all-to-all in
-the fake group's backend DTensor gathers instead.
+Train and prefill cells whose sequence divides the "model" axis run, as
+the reference's `lower_cell` sets them, with the sequence-parallel residual
+stream (ExecConfig.carry_spec = (data axes, "model", None): each layer's
+output sharded on its sequence over "model", reduce-scattered onto it and
+gathered after each norm) and, for the MoE, the expert-parallel dispatch
+(ExecConfig.ep_axes = sharding.ep_axes_for(mesh, E), where those axes
+divide the experts: one all-to-all each way, which the fake group's
+`alltoall_base` performs and the records count under "all-to-all"; the
+MoE's groups on the data axes; distributed/tensor_parallel.py
+`expert_parallel_region`). "seq_parallel" and "expert_parallel_dispatch"
+record what was set. Decode cells run without either, as in the reference.
 
 Usage:
     python -m repro_torch.launch.dryrun --mode proof --arch all --shape all --mesh both
@@ -90,8 +94,8 @@ from repro_torch.configs import (
 from repro_torch.distributed import sharding
 from repro_torch.models import backbone
 from repro_torch.models.config import ModelConfig
-from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models.layers import TRAIN_EXEC
+from repro_torch.launch.mesh import batch_axes, make_production_mesh
+from repro_torch.models.layers import TRAIN_EXEC, ExecConfig
 from repro_torch.training.optimizer import AdamWConfig, init_opt_state, tree_leaves, tree_map
 from repro_torch.training.train_step import (
     make_sharded_train_step,
@@ -313,24 +317,38 @@ def shape_spec(shape) -> ShapeSpec:
     return shape if isinstance(shape, ShapeSpec) else SHAPES[shape]
 
 
+def cell_exec(cfg: ModelConfig, shape, mesh) -> ExecConfig:
+    """The cell's ExecConfig: the reference's training mode (TRAIN_EXEC: no
+    kernel, remat, query blocks of 1024, as its dry-run's ExecConfig), and,
+    as its `lower_cell` sets them, for train and prefill cells whose
+    sequence divides "model", the sequence-parallel carry over (data axes,
+    "model", None) and the MoE's expert-parallel axes."""
+    sp = shape_spec(shape)
+    model = sharding.mesh_axes(mesh).get("model", 1)
+    if sp.kind not in ("train", "prefill") or sp.seq_len % model:
+        return TRAIN_EXEC
+    ep = sharding.ep_axes_for(mesh, cfg.moe.num_experts) if cfg.moe else None
+    return dataclasses.replace(TRAIN_EXEC, carry_spec=(batch_axes(mesh), "model", None),
+                               ep_axes=ep)
+
+
 def place_cell(cfg: ModelConfig, shape, mesh, mb: int = 1):
     """The cell's step and its arguments placed on `mesh` as the port's
-    sharding rules place them (meta local shards). `shape` is a name of
-    SHAPES or a ShapeSpec. The steps run the reference's training mode
-    (TRAIN_EXEC: no kernel, remat, query blocks of 1024, as its dry-run's
-    ExecConfig). Returns (step, args)."""
+    sharding rules place them (meta local shards), run under `cell_exec`.
+    `shape` is a name of SHAPES or a ShapeSpec. Returns (step, args)."""
     spec = input_specs(cfg, shape)
     kind = shape_spec(shape).kind
+    ex = cell_exec(cfg, shape, mesh)
     params = abstract_params(cfg)
     sp = shard_params(params, mesh)
     if kind == "train":
         so = shard_opt_state(init_opt_state(params), params, mesh)
-        step = make_sharded_train_step(mesh, cfg, AdamWConfig(), TRAIN_EXEC, microbatches=mb)
+        step = make_sharded_train_step(mesh, cfg, AdamWConfig(), ex, microbatches=mb)
         return step, (sp, so, shard_batch(spec["batch"], mesh))
     if kind == "prefill":
         def prefill(p, b):
             with implicit_replication(), torch.no_grad():
-                return backbone.prefill(p, b, cfg, TRAIN_EXEC)
+                return backbone.prefill(p, b, cfg, ex)
         return prefill, (sp, shard_batch(spec["batch"], mesh))
     cache = _place(spec["cache"], sharding.cache_pspecs(spec["cache"], cfg, mesh), mesh)
     extra = {k: spec[k] for k in ("tokens", "embeds") if k in spec}
@@ -339,7 +357,7 @@ def place_cell(cfg: ModelConfig, shape, mesh, mb: int = 1):
 
     def decode(p, c, t, e):
         with implicit_replication(), torch.no_grad():
-            return backbone.serve_step(p, c, t, cfg, TRAIN_EXEC, embeds=e)
+            return backbone.serve_step(p, c, t, cfg, ex, embeds=e)
     return decode, (sp, cache, extra["tokens"], extra.get("embeds"))
 
 
@@ -367,7 +385,9 @@ def lower_cell(cfg: ModelConfig, shape, mesh, mb: int = 1) -> tuple[Recorder, in
                                                "trace_s": round(t2 - t1, 2)}
 
 
-def analyze(rec: Recorder, argument_bytes: int, output_bytes: int) -> dict:
+def analyze(rec: Recorder, argument_bytes: int, output_bytes: int,
+            exec_cfg: ExecConfig = TRAIN_EXEC) -> dict:
+    """One lowered cell's record; exec_cfg is the ExecConfig it ran under."""
     colls = collective_bytes(rec.colls)
     memory, source = hbm_bytes()
     return {
@@ -382,9 +402,13 @@ def analyze(rec: Recorder, argument_bytes: int, output_bytes: int) -> dict:
         "fits_hbm": rec.peak <= memory,
         "collectives": colls,
         "collective_bytes_per_device": sum(c["bytes"] for c in colls.values()),
-        "seq_parallel": False,
-        "expert_parallel_dispatch": False,
+        **_sharding_flags(exec_cfg),
     }
+
+
+def _sharding_flags(exec_cfg: ExecConfig) -> dict:
+    return {"seq_parallel": exec_cfg.carry_spec is not None,
+            "expert_parallel_dispatch": exec_cfg.ep_axes is not None}
 
 
 def _unit_layers(cfg: ModelConfig) -> int:
@@ -394,17 +418,18 @@ def _unit_layers(cfg: ModelConfig) -> int:
 def measure(cfg: ModelConfig, shape: str, mesh, mode: str) -> dict:
     """One cell's record on a built mesh (a proof or a cost pass)."""
     devices = mesh.size()
+    ex = cell_exec(cfg, shape, mesh)
     if mode == "proof":
         mb = microbatches(cfg) if shape_spec(shape).kind == "train" else 1
         rec, arg, out, times = lower_cell(cfg, shape, mesh, mb)
         return {"status": "ok", "devices": devices, "microbatches": mb, **times,
-                **analyze(rec, arg, out)}
+                **analyze(rec, arg, out, ex)}
     unit = _unit_layers(cfg)
     results, times_all = {}, {}
     for mult in (1, 2):
         small = dataclasses.replace(cfg, num_layers=unit * mult)
         rec, arg, out, times = lower_cell(small, shape, mesh)
-        results[mult] = analyze(rec, arg, out)
+        results[mult] = analyze(rec, arg, out, ex)
         times_all[f"trace_s_L{unit * mult}"] = times["trace_s"]
     n_units = cfg.num_layers // unit
     rec = {"status": "ok", "devices": devices,
@@ -414,7 +439,7 @@ def measure(cfg: ModelConfig, shape: str, mesh, mode: str) -> dict:
         per_unit = results[2][key] - results[1][key]
         rec[key] = results[1][key] + per_unit * (n_units - 1)
     rec["collectives"] = results[2]["collectives"]
-    rec["seq_parallel"] = rec["expert_parallel_dispatch"] = False
+    rec.update(_sharding_flags(ex))
     return rec
 
 

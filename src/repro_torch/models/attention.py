@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.distributed.tensor_parallel import (
     local_attention,
     local_decode_attention,
+    row_parallel_input,
     whole_heads,
     write_slots,
 )
@@ -144,7 +145,7 @@ def attention_block(p: dict, x, positions, cfg: ModelConfig,
     q, k, v = _qkv(p, x, a)
     q, k = _rope(q, k, positions, a)
     o = multihead_attention(q, k, v, a, exec_cfg)
-    return o.reshape(b, s, -1) @ p["wo"], (k, v)
+    return row_parallel_input(o.reshape(b, s, -1), p["wo"]) @ p["wo"], (k, v)
 
 
 def attention_extend_block(p: dict, x, k_cache, v_cache, pos, cfg: ModelConfig,

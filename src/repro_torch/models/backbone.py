@@ -68,6 +68,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     DEFAULT_EXEC,
     ExecConfig,
+    constrain_carry,
     embed_tokens,
     init_embed,
     init_moe,
@@ -184,12 +185,25 @@ def _grow_cache(cache: Cache, cfg: ModelConfig, max_seq: int) -> Cache:
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
+def _residual(x, h, exec_cfg: ExecConfig):
+    """x + h on the residual stream. Under a carry_spec (a sharded step)
+    both are first placed as the carry (`constrain_carry`): h, a
+    row-parallel product's partial sum over "model", is reduce-scattered
+    onto the sequence shards, rather than left to DTensor, which may gather
+    weights instead. The last add of each layer so leaves its output
+    placed where the reference's layer ends constrain it."""
+    return constrain_carry(x, exec_cfg) + constrain_carry(h, exec_cfg)
+
+
 def _ffn(lp: dict, x, cfg: ModelConfig, exec_cfg: ExecConfig):
-    """The residual FFN of a layer: the routed experts for moe, else SwiGLU."""
+    """The residual FFN of a layer: the routed experts for moe, else
+    SwiGLU. It ends the attention and Mamba2 layers."""
     xn = rmsnorm(lp["norm2"], x, cfg.norm_eps)
     if cfg.family == "moe":
-        return x + moe_ffn(lp["moe"], xn, cfg, exec_cfg)
-    return x + swiglu(lp["ffn"], xn)
+        h = moe_ffn(lp["moe"], xn, cfg, exec_cfg)
+    else:
+        h = swiglu(lp["ffn"], xn)
+    return _residual(x, h, exec_cfg)
 
 
 def _final_logits(params: Params, x, cfg: ModelConfig):
@@ -205,11 +219,11 @@ def _rwkv_layer(lp: dict, x, cfg: ModelConfig, exec_cfg: ExecConfig,
     h, (last_att, state) = rwkv6.time_mix(
         lp["time_mix"], rmsnorm(lp["norm1"], x, cfg.norm_eps),
         zp if x_prev_att is None else x_prev_att, state0, cfg, exec_cfg)
-    x = x + h
+    x = _residual(x, h, exec_cfg)
     h, last_ffn = rwkv6.channel_mix(
         lp["channel_mix"], rmsnorm(lp["norm2"], x, cfg.norm_eps),
         zp if x_prev_ffn is None else x_prev_ffn)
-    return x + h, (last_att, last_ffn, state)
+    return _residual(x, h, exec_cfg), (last_att, last_ffn, state)
 
 
 def _mamba_layer(lp: dict, x, cfg: ModelConfig, exec_cfg: ExecConfig,
@@ -219,7 +233,7 @@ def _mamba_layer(lp: dict, x, cfg: ModelConfig, exec_cfg: ExecConfig,
     h, (state, conv) = mamba2.mamba2_block(
         lp["mamba"], rmsnorm(lp["norm1"], x, cfg.norm_eps), cfg, state0, conv_prev,
         exec_cfg)
-    return _ffn(lp, x + h, cfg, exec_cfg), (state, conv)
+    return _ffn(lp, _residual(x, h, exec_cfg), cfg, exec_cfg), (state, conv)
 
 
 def _is_tap(cfg: ModelConfig, layer: int) -> bool:
@@ -264,7 +278,7 @@ def _recurrent_segment(params: Params, cache: Cache | None, x, cfg: ModelConfig,
             tap = l // cfg.hybrid_attn_every
             h, _, _ = attention_extend_block(sp["attn"], xn, cache["k"][tap],
                                              cache["v"][tap], cache["pos"], cfg, exec_cfg)
-        x = x + h
+        x = _residual(x, h, exec_cfg)
     pieces = {"ssm_state": torch.stack(sts), "conv_state": torch.stack(cvs)}
     if cache is None:
         pieces.update(k=torch.stack(ks), v=torch.stack(vs))
@@ -303,7 +317,7 @@ def _train_stages(params: Params, cfg: ModelConfig, exec_cfg: ExecConfig, positi
         def run(x):
             h, _ = attention_block(lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps),
                                    positions, cfg, exec_cfg)
-            return _ffn(lp, x + h, cfg, exec_cfg)
+            return _ffn(lp, _residual(x, h, exec_cfg), cfg, exec_cfg)
         return run
 
     def rwkv_layer(lp):
@@ -317,7 +331,7 @@ def _train_stages(params: Params, cfg: ModelConfig, exec_cfg: ExecConfig, positi
                 x, _ = _mamba_layer(lp, x, cfg, exec_cfg)
             h, _ = attention_block(sp["attn"], rmsnorm(sp["norm"], x, cfg.norm_eps),
                                    positions, cfg, exec_cfg)
-            return x + h
+            return _residual(x, h, exec_cfg)
         return run
 
     layers = params["layers"]
@@ -368,7 +382,7 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
     0.01 times layer 0's load-balancing loss on the embeddings."""
     ce = cross_entropy(forward(params, batch, cfg, exec_cfg), batch["labels"], cfg.vocab_size)
     if cfg.family == "moe":
-        aux = moe_aux_loss(params["layers"][0]["moe"], _embed_in(params, batch), cfg)
+        aux = moe_aux_loss(params["layers"][0]["moe"], _embed_in(params, batch), cfg, exec_cfg)
         ce = ce + 0.01 * aux
     return ce
 
@@ -391,7 +405,7 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
     for lp in params["layers"]:
         h, (k, v) = attention_block(lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps),
                                     positions, cfg, exec_cfg)
-        x = _ffn(lp, x + h, cfg, exec_cfg)
+        x = _ffn(lp, _residual(x, h, exec_cfg), cfg, exec_cfg)
         ks.append(k.transpose(1, 2))
         vs.append(v.transpose(1, 2))
     logits = _final_logits(params, x[:, -1:], cfg)[:, 0]

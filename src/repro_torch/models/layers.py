@@ -17,8 +17,12 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed.tensor_parallel import (
+    batch_sum_region,
+    expert_parallel_region,
+    placed,
     replicate_residual,
     replicated_region,
+    spec_placements,
     vocab_parallel_embed,
 )
 from repro_torch.models.config import ModelConfig, MoEConfig
@@ -46,8 +50,19 @@ class ExecConfig:
     group for the hybrid) in the backward pass of `forward`, so that only
     layer-boundary activations are saved.
 
-    moe_group_size is the reference's: tokens per MoE dispatch group. Its
-    sharding knobs (carry_spec, ep_axes) have no counterpart here.
+    moe_group_size is the reference's: tokens per MoE dispatch group.
+
+    carry_spec and ep_axes are the reference's sharding knobs, read only
+    where the activations are DTensors (the sharded train step and prefill;
+    the dry-run sets them). carry_spec, a PartitionSpec-like tuple such as
+    (("data",), "model", None), is Megatron-style sequence parallelism: the
+    (B, S, D) residual stream is placed so at every layer boundary
+    (`constrain_carry`), its sequence over "model", which divides the saved
+    remat carries by that axis's size. It also sends the MoE through the
+    hand-placed dispatch (`tensor_parallel.expert_parallel_region`). ep_axes
+    (mesh axes whose size divides num_experts; `sharding.ep_axes_for`)
+    lays that dispatch out expert-major over those axes, one all-to-all each
+    way, so each rank runs its own experts on its own banks.
     """
 
     q_block: int = 1024          # attention query-block length (plain path)
@@ -55,6 +70,8 @@ class ExecConfig:
     impl: str = "auto"
     remat: bool = True           # checkpoint each layer during training
     moe_group_size: int = 4096   # tokens per MoE dispatch group
+    carry_spec: tuple | None = None   # the residual stream's placement on a mesh
+    ep_axes: tuple | None = None      # expert-parallel axes of the MoE dispatch
 
 
 DEFAULT_EXEC = ExecConfig()
@@ -63,6 +80,16 @@ DEFAULT_EXEC = ExecConfig()
 # the reference's training mode: its blocked math, each layer recomputed in
 # the backward pass (src/repro/models/layers.py ExecConfig defaults)
 TRAIN_EXEC = ExecConfig(use_kernels=False, remat=True)
+
+
+def constrain_carry(x, exec_cfg: ExecConfig):
+    """x (B, S, D), a DTensor, placed as exec_cfg.carry_spec says: per mesh
+    dim, Shard(i) for the tensor dim i that names its axis, else Replicate
+    (a partial sum is reduced: reduce-scattered where the carry shards).
+    A plain tensor, or no carry_spec, passes as it is."""
+    if exec_cfg.carry_spec is None or not isinstance(x, DTensor):
+        return x
+    return placed(x, spec_placements(exec_cfg.carry_spec, x.device_mesh.mesh_dim_names))
 
 
 def serving_guard(x, exec_cfg: ExecConfig, what: str) -> None:
@@ -93,13 +120,21 @@ def init_rmsnorm(d: int, device) -> torch.Tensor:
 
 def rmsnorm(g, x, eps: float = 1e-5):
     """fp32 only inside the mean-square reduction; the normalize multiply
-    stays in the input dtype. A DTensor input (a step on a mesh) is first
-    placed by its batch shards alone, replicated elsewhere (a partial sum
-    reduced), as Megatron's layers feed their column-parallel products:
-    left to DTensor, a later layer's products may gather their weights and
-    compute whole on every rank."""
+    stays in the input dtype. A DTensor input (a step on a mesh) is placed
+    by its batch shards alone, replicated elsewhere, as Megatron's layers
+    feed their column-parallel products: left to DTensor, a later layer's
+    products may gather their weights and compute whole on every rank. The
+    sequence-parallel carry (x (B, S, D) sharded on S) is normed on its
+    shards and its output gathered, in its own dtype; any other input is
+    gathered first (a partial sum reduced)."""
     if isinstance(x, DTensor):
+        if x.ndim == 3 and any(q.is_shard(1) for q in x.placements):
+            return replicate_residual(_rms(g, x, eps))
         x = replicate_residual(x)
+    return _rms(g, x, eps)
+
+
+def _rms(g, x, eps: float):
     dt = x.dtype
     ms = x.float().square().mean(dim=-1, keepdim=True)
     scale = torch.rsqrt(ms + eps).to(dt)
@@ -187,18 +222,30 @@ def _moe_capacity(tokens_per_group: int, m: MoEConfig) -> int:
 
 
 def moe_ffn(p: dict, x, cfg: ModelConfig, exec_cfg: ExecConfig = DEFAULT_EXEC):
-    """x (B, S, D) -> (B, S, D), the reference's `moe_ffn` op for op. Its
-    sharding anchors (carry_spec, ep_axes) pin buffers to mesh axes and have
-    no counterpart on one card: they are left out."""
-    if isinstance(x, DTensor):         # the sharded train step
-        return replicated_region(moe_ffn, p, x, cfg, exec_cfg)
+    """x (B, S, D) -> (B, S, D), the reference's `moe_ffn` op for op, over
+    groups of `moe_group_size` contiguous tokens (`moe_groups`). A DTensor x
+    (the sharded step) takes the hand-placed expert-parallel dispatch under
+    a carry_spec, else runs whole on every rank."""
     m = cfg.moe
+    if isinstance(x, DTensor):         # the sharded train step
+        if exec_cfg.carry_spec is not None:
+            return expert_parallel_region(lambda pl, xg, ex: moe_groups(pl, xg, m, ex),
+                                          p, x, exec_cfg, m.num_experts)
+        return replicated_region(moe_ffn, p, x, cfg, exec_cfg)
     b, s, d = x.shape
     total = b * s
     tg = min(exec_cfg.moe_group_size, total)
     assert total % tg == 0, f"tokens {total} not divisible by group {tg}"
-    g, e, dev = total // tg, m.num_experts, x.device
-    xg = x.reshape(g, tg, d)
+    return moe_groups(p, x.reshape(total // tg, tg, d), m).reshape(b, s, d)
+
+
+def moe_groups(p: dict, xg, m: MoEConfig, experts=None):
+    """The routed MoE over groups xg (G, Tg, D) -> (G, Tg, D): route, rank,
+    drop and scatter each group's units into (G, E, C, D), run the experts,
+    combine. experts(ein, fn), if given, runs the expert products fn on the
+    dispatch buffer its own way (the expert-parallel exchange)."""
+    g, tg, d = xg.shape
+    e, dev = m.num_experts, xg.device
 
     # routing: the router product in the activation dtype, upcast after
     logits = (xg @ p["router"].to(xg.dtype)).float()               # (G, Tg, E)
@@ -223,13 +270,12 @@ def moe_ffn(p: dict, x, cfg: ModelConfig, exec_cfg: ExecConfig = DEFAULT_EXEC):
     # which dropped units may share, is cut off before the experts
     xu = xg[:, torch.arange(tk, device=dev) // m.top_k]            # (G, TK, D)
     rows = torch.arange(g, device=dev)[:, None]
-    buf = torch.zeros(g, e * cap + 1, d, dtype=x.dtype, device=dev)
+    buf = torch.zeros(g, e * cap + 1, d, dtype=xg.dtype, device=dev)
     buf[rows, slot] = xu
     ein = buf[:, :e * cap].reshape(g, e, cap, d)
 
-    hgate = torch.einsum("gecd,edf->gecf", ein, p["w_gate"])
-    hup = torch.einsum("gecd,edf->gecf", ein, p["w_up"])
-    hout = torch.einsum("gecf,efd->gecd", F.silu(hgate) * hup, p["w_down"])
+    hout = _moe_experts(p, ein) if experts is None else experts(
+        ein, lambda t: _moe_experts(p, t))
     hflat = torch.cat([hout.reshape(g, e * cap, d),
                        torch.zeros(g, 1, d, dtype=hout.dtype, device=dev)], dim=1)
 
@@ -239,19 +285,42 @@ def moe_ffn(p: dict, x, cfg: ModelConfig, exec_cfg: ExecConfig = DEFAULT_EXEC):
     out = (out_u * w[..., None]).reshape(g, tg, m.top_k, d).sum(dim=2)
     if m.num_shared_experts > 0:
         out = out + swiglu(p["shared"], xg)
-    return out.reshape(b, s, d)
+    return out
 
 
-def moe_aux_loss(p: dict, x, cfg: ModelConfig):
+def _moe_experts(p: dict, ein):
+    """The experts' SwiGLUs as three batched products over ein (G, E, C, D)."""
+    hgate = torch.einsum("gecd,edf->gecf", ein, p["w_gate"])
+    hup = torch.einsum("gecd,edf->gecf", ein, p["w_up"])
+    return torch.einsum("gecf,efd->gecd", F.silu(hgate) * hup, p["w_down"])
+
+
+def _router_probs(p: dict, x, d: int):
+    """Router probabilities (T, E) of x (..., d), fp32: the product in the
+    activation dtype, only the logits upcast."""
+    return torch.softmax((x.reshape(-1, d) @ p["router"].to(x.dtype)).float(), dim=-1)
+
+
+def _aux_sums(p: dict, x, e: int) -> tuple:
+    """(top-1 counts, router probability sums), each (E,), over x's tokens."""
+    probs = _router_probs(p, x, x.shape[-1])
+    return F.one_hot(probs.argmax(dim=-1), e).float().sum(dim=0), probs.sum(dim=0)
+
+
+def moe_aux_loss(p: dict, x, cfg: ModelConfig, exec_cfg: ExecConfig = DEFAULT_EXEC):
     """Switch-style load-balancing loss of the router p over x (..., D): E
     times the dot product of each expert's top-1 share and its mean router
     probability. The router product runs in the activation dtype and only the
-    (T, E) logits are upcast, as in the reference."""
-    if isinstance(x, DTensor):         # the sharded train step
-        return replicated_region(moe_aux_loss, p, x, cfg)
+    (T, E) logits are upcast, as in the reference. A DTensor x takes its
+    sums on each rank's tokens under a carry_spec, else runs whole."""
     e = cfg.moe.num_experts
-    logits = (x.reshape(-1, cfg.d_model) @ p["router"].to(x.dtype)).float()
-    probs = torch.softmax(logits, dim=-1)
+    if isinstance(x, DTensor):         # the sharded train step
+        if exec_cfg.carry_spec is None:
+            return replicated_region(moe_aux_loss, p, x, cfg)
+        counts, sums = batch_sum_region(_aux_sums, p, x, e)
+        n = x.numel() // x.shape[-1]
+        return e * ((counts / n) * (sums / n)).sum()
+    probs = _router_probs(p, x, cfg.d_model)
     frac = F.one_hot(probs.argmax(dim=-1), e).float().mean(dim=0)
     return e * (frac * probs.mean(dim=0)).sum()
 

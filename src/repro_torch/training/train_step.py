@@ -12,7 +12,10 @@ reference's from `jax.value_and_grad`. The sharded step runs the same
 train_step on DTensors: params placed by `param_pspecs` (tensor parallel on
 "model"), optimizer state by `zero_pspecs` (ZeRO over the data axes), the
 batch over the data axes; DTensor inserts the collectives the reference
-leaves to XLA's partitioner. The compressed step is data parallel over a
+leaves to XLA's partitioner. Its exec_cfg takes the reference's sharding
+knobs, as the reference's train_step does: carry_spec places the residual
+stream on its sequence shards between layers, ep_axes lays the MoE
+dispatch out expert-major (models/layers.py ExecConfig). The compressed step is data parallel over a
 process group with replicated params, the gradient sync an int8 all-reduce
 with an error-feedback residual (distributed/compression.py).
 """

@@ -83,15 +83,16 @@ for arch in json.loads(sys.argv[3]):
         _, compiled, _ = d.lower_cell(cfg, shape, mesh, ExecConfig(static_unroll=False,
                                                                    q_block=1024))
         rec = d.analyze(compiled)
-        out[f"{arch}/{shape}"] = [rec["argument_bytes"], rec["flops_per_device"]]
+        out[f"{arch}/{shape}"] = [rec["argument_bytes"], rec["flops_per_device"],
+                                  sorted(rec["collectives"])]
 print(json.dumps(out))
 """
 
 
 @pytest.fixture(scope="module")
 def reference_argument_bytes():
-    """{mesh: {arch/shape: [argument_bytes, flops_per_device]}} from the
-    live reference, one subprocess a mesh, both at once."""
+    """{mesh: {arch/shape: [argument_bytes, flops_per_device, collective
+    kinds]}} from the live reference, one subprocess a mesh, both at once."""
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     procs = {m: subprocess.Popen(
@@ -186,6 +187,34 @@ def test_dense_flops_beside_xla(mesh_name, reference_argument_bytes, capsys):
 
 
 # ------------------------------------------------------- collectives and cost
+@pytest.mark.parametrize("mesh_name", MESHES)
+def test_sharded_cells_record_their_collectives(mesh_name, reference_argument_bytes, capsys):
+    """The dense and moe reduced train and prefill cells run sequence-
+    parallel (their 256 tokens divide "model"), as the reference's do; the
+    moe's 4 experts split over the data axes, so its dispatch goes through
+    the all-to-all and the record says so. The port's collective kinds are
+    printed beside those XLA chose for the reference's program."""
+    lines = []
+    with dr.fake_mesh(*MESHES[mesh_name]) as mesh:
+        for arch in ("yi-6b", "qwen2-moe-a2.7b"):
+            cfg = configs.get_reduced_config(arch)
+            for shape in ("train_4k", "prefill_32k"):
+                spec = ShapeSpec(shape, *CUT[shape])
+                ex = dr.cell_exec(cfg, spec, mesh)
+                rec = dr.analyze(*dr.lower_cell(cfg, spec, mesh)[:3], ex)
+                xla = reference_argument_bytes[mesh_name][f"{arch}/{shape}"][2]
+                lines.append(f"{arch}/{shape}: port {sorted(rec['collectives'])}, "
+                             f"XLA {xla}, expert_parallel_dispatch "
+                             f"{rec['expert_parallel_dispatch']}")
+                assert rec["seq_parallel"] and ex.carry_spec[1] == "model", (arch, shape)
+                assert rec["expert_parallel_dispatch"] == (arch == "qwen2-moe-a2.7b"), (arch, shape)
+                if rec["expert_parallel_dispatch"]:
+                    assert "all-to-all" in rec["collectives"], (arch, shape, rec["collectives"])
+                assert "reduce-scatter" in rec["collectives"], (arch, shape)
+    with capsys.disabled():
+        print(f"\ncollective kinds, reduced cells on {mesh_name}:\n  " + "\n  ".join(lines))
+
+
 def test_collective_bytes_match_the_reference_parser():
     """tests/test_property.py::test_collective_bytes_parser's HLO, as the
     records the port reads off its collectives."""
@@ -251,4 +280,8 @@ def test_cli_runs_one_arch_over_every_shape_and_both_meshes(tmp_path):
         if rec["status"] == "ok":
             assert rec["devices"] == (512 if "multi_pod" in key else 256), key
             assert rec["argument_bytes"] > 0 and rec["flops_per_device"] > 0, key
-            assert rec["seq_parallel"] is False, key
+            # the reference's rule: train and prefill cells whose sequence
+            # divides "model" (4096 and 32768 over 16) are sequence-parallel
+            kind = configs.SHAPES[key.split("/")[1]].kind
+            assert rec["seq_parallel"] is (kind in ("train", "prefill")), key
+            assert rec["expert_parallel_dispatch"] is False, key      # dense
