@@ -1,0 +1,2 @@
+"""Share of the traced window in which nothing ran on the card, in %."""
+from perfbench.metrics._shared import idle_share as read  # noqa: F401
