@@ -1138,13 +1138,12 @@ def phase_engine(checks):
 
     for ck in checks.values():
         ck.kernel.launches = 0
-    streams, walls = {}, {}
+    streams = {}
     for kind, policy, paged in runs:
         before = {n: ck.kernel.launches for n, ck in checks.items()}
         eng, done, wall = serve(kind, policy, paged)
         streams[f"{kind}/{policy}/paged={paged}"] = [
             r.out_tokens for r in sorted(done, key=lambda r: r.req_id)]
-        walls[f"{kind}/{policy}/paged={paged}"] = [wall]
         if len(done) != len(prompts) or any(
                 len(r.out_tokens) != MAX_NEW or r.status != "ok" for r in done):
             raise RuntimeError(f"{kind}/{policy}: requests did not all finish with "
@@ -1170,17 +1169,6 @@ def phase_engine(checks):
         torch.cuda.empty_cache()
     for ck in checks.values():
         ck.path_launches += ck.kernel.launches
-    # the host sets the engine's pace, and one run's wall time varies by tens
-    # of percent: two more runs of each kind (after the counted ones, so the
-    # launch counts stay those of one run each) give three walls to compare
-    for (kind, policy, paged), name in zip(runs, walls):
-        for _ in range(2):
-            walls[name].append(serve(kind, policy, paged)[2])
-            torch.cuda.empty_cache()
-    print("engine walls (s), three runs of each kind: " + "; ".join(
-        f"{name} {', '.join(f'{w:.2f}' for w in ws)} (median {sorted(ws)[1]:.2f})"
-        for name, ws in walls.items()), flush=True)
-
     # each run's greedy streams against the plain path's (impl="torch", no
     # kernel) on the card: the tokens a run shares with it before each
     # request's first divergence. With random weights many steps are near
@@ -1225,23 +1213,6 @@ def phase_engine(checks):
                   f"argmax {int(a.argmax())} vs {int(b.argmax())}", flush=True)
             if rel > TOL_LOGITS:
                 raise RuntimeError(f"{what}: kernel path logits disagree ({rel:.3e})")
-
-    # where one run's time goes: device busy share and the top kernels, from
-    # torch.profiler over the standalone continuous paged run
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, wall = serve("standalone", "continuous", True)
-    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.device_time_total for e in on_card)
-    print(f"profile standalone continuous paged: wall {wall:.3f} s with the profiler "
-          f"on, device busy {busy_us / 1e6:.3f} s = {busy_us / 1e6 / wall:.1%} of wall",
-          flush=True)
-    for e in sorted(on_card, key=lambda e: -e.device_time_total)[:10]:
-        print(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}",
-              flush=True)
-    _print_port_kernels(on_card)
 
 
 # -------------------------------------------------------------- recurrent

@@ -53,6 +53,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.distributed.tensor_parallel import vocab_parallel_cross_entropy
 from repro_torch.models import mamba2, rwkv6
@@ -197,13 +198,13 @@ def _residual(x, h, exec_cfg: ExecConfig):
 
 def _ffn(lp: dict, x, cfg: ModelConfig, exec_cfg: ExecConfig):
     """The residual FFN of a layer: the routed experts for moe, else
-    SwiGLU. It ends the attention and Mamba2 layers."""
-    xn = rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    if cfg.family == "moe":
-        h = moe_ffn(lp["moe"], xn, cfg, exec_cfg)
-    else:
-        h = swiglu(lp["ffn"], xn)
-    return _residual(x, h, exec_cfg)
+    SwiGLU. It ends the attention and Mamba2 layers. Span: `model.moe` or
+    `model.ffn`."""
+    moe = cfg.family == "moe"
+    with tracing.span("model.moe" if moe else "model.ffn"):
+        xn = rmsnorm(lp["norm2"], x, cfg.norm_eps)
+        h = moe_ffn(lp["moe"], xn, cfg, exec_cfg) if moe else swiglu(lp["ffn"], xn)
+        return _residual(x, h, exec_cfg)
 
 
 def _final_logits(params: Params, x, cfg: ModelConfig):
@@ -392,24 +393,26 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
     """Prompt processing of batch {"tokens": (B, S)} or {"embeds": (B, S, D)}
     (plus {"positions": (3, B, S)} under M-RoPE): (logits at the last
     position (B, V), cache; the K/V of the attention families and the hybrid
-    hold exactly S slots)."""
+    hold exactly S slots). Spans: `model.forward`, a `model.attn` a layer."""
     _serving(params, cfg, exec_cfg, "prefill")
-    x = _embed_in(params, batch)
-    b, s, _ = x.shape
-    positions = _positions_in(batch, b, s, cfg, x.device)
-    pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
-    if cfg.family not in ATTENTION:
-        x, cache = _recurrent_segment(params, None, x, cfg, exec_cfg, positions)
-        return _final_logits(params, x[:, -1:], cfg)[:, 0], {**cache, "pos": pos}
-    ks, vs = [], []
-    for lp in params["layers"]:
-        h, (k, v) = attention_block(lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps),
-                                    positions, cfg, exec_cfg)
-        x = _ffn(lp, _residual(x, h, exec_cfg), cfg, exec_cfg)
-        ks.append(k.transpose(1, 2))
-        vs.append(v.transpose(1, 2))
-    logits = _final_logits(params, x[:, -1:], cfg)[:, 0]
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "pos": pos}
+    with tracing.span("model.forward"):
+        x = _embed_in(params, batch)
+        b, s, _ = x.shape
+        positions = _positions_in(batch, b, s, cfg, x.device)
+        pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        if cfg.family not in ATTENTION:
+            x, cache = _recurrent_segment(params, None, x, cfg, exec_cfg, positions)
+            return _final_logits(params, x[:, -1:], cfg)[:, 0], {**cache, "pos": pos}
+        ks, vs = [], []
+        for lp in params["layers"]:
+            with tracing.span("model.attn"):
+                h, (k, v) = attention_block(lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps),
+                                            positions, cfg, exec_cfg)
+            x = _ffn(lp, _residual(x, h, exec_cfg), cfg, exec_cfg)
+            ks.append(k.transpose(1, 2))
+            vs.append(v.transpose(1, 2))
+        logits = _final_logits(params, x[:, -1:], cfg)[:, 0]
+        return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "pos": pos}
 
 
 def serve_step(params: Params, cache: Cache, tokens, cfg: ModelConfig,
@@ -493,20 +496,23 @@ def serve_step_paged(params: Params, pages_k, pages_v, tables, lengths, tokens,
     sequence; tokens: (B,); max_len: batch-max length including the new
     token. Returns (logits (B, V), k_tok (L, B, KV, D), v_tok) - the step's
     own K/V for `scatter_append`. Dense and moe: a decode step feeds its B
-    tokens through the experts as one group either way."""
+    tokens through the experts as one group either way. Spans:
+    `model.forward`, a `model.attn` a layer."""
     _serving(params, cfg, exec_cfg, "serve_step_paged", ("dense", "moe"))
-    x = embed_tokens(params["tok"], tokens)[:, None, :]            # (B, 1, D)
-    prope = lengths[:, None]
-    kts, vts = [], []
-    for l, lp in enumerate(params["layers"]):
-        h, kt, vt = attention_paged_decode_block(
-            lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps), pages_k[l],
-            pages_v[l], tables, lengths, prope, cfg, exec_cfg, max_len=max_len)
-        x = _ffn(lp, x + h, cfg, exec_cfg)
-        kts.append(kt[:, 0])
-        vts.append(vt[:, 0])
-    logits = _final_logits(params, x, cfg)[:, 0]
-    return logits, torch.stack(kts), torch.stack(vts)
+    with tracing.span("model.forward"):
+        x = embed_tokens(params["tok"], tokens)[:, None, :]            # (B, 1, D)
+        prope = lengths[:, None]
+        kts, vts = [], []
+        for l, lp in enumerate(params["layers"]):
+            with tracing.span("model.attn"):
+                h, kt, vt = attention_paged_decode_block(
+                    lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps), pages_k[l],
+                    pages_v[l], tables, lengths, prope, cfg, exec_cfg, max_len=max_len)
+            x = _ffn(lp, x + h, cfg, exec_cfg)
+            kts.append(kt[:, 0])
+            vts.append(vt[:, 0])
+        logits = _final_logits(params, x, cfg)[:, 0]
+        return logits, torch.stack(kts), torch.stack(vts)
 
 
 def prefill_chunk_paged(params: Params, pages_k, pages_v, table, ctx0: int,
@@ -515,19 +521,22 @@ def prefill_chunk_paged(params: Params, pages_k, pages_v, table, ctx0: int,
     """Incremental chunked prefill of ONE sequence: tokens (C,) at positions
     [ctx0, ctx0 + C) attend over its ctx0 cached tokens (through `table`
     (NB,)) plus themselves. Returns (last_logits (1, V), k_c (L, KV, C, D),
-    v_c) for `scatter_chunk`."""
+    v_c) for `scatter_chunk`. Spans: `model.forward`, a `model.attn` a
+    layer."""
     _serving(params, cfg, exec_cfg, "prefill_chunk_paged", ("dense",))
-    x = embed_tokens(params["tok"], tokens[None, :])               # (1, C, D)
-    kcs, vcs = [], []
-    for l, lp in enumerate(params["layers"]):
-        h, kt, vt = attention_paged_chunk_block(
-            lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps), pages_k[l],
-            pages_v[l], table, ctx0, cfg, exec_cfg)
-        x = _ffn(lp, x + h, cfg, exec_cfg)
-        kcs.append(kt[0].transpose(0, 1))
-        vcs.append(vt[0].transpose(0, 1))
-    logits = _final_logits(params, x[:, -1:], cfg)[:, 0]
-    return logits, torch.stack(kcs), torch.stack(vcs)
+    with tracing.span("model.forward"):
+        x = embed_tokens(params["tok"], tokens[None, :])               # (1, C, D)
+        kcs, vcs = [], []
+        for l, lp in enumerate(params["layers"]):
+            with tracing.span("model.attn"):
+                h, kt, vt = attention_paged_chunk_block(
+                    lp["attn"], rmsnorm(lp["norm1"], x, cfg.norm_eps), pages_k[l],
+                    pages_v[l], table, ctx0, cfg, exec_cfg)
+            x = _ffn(lp, x + h, cfg, exec_cfg)
+            kcs.append(kt[0].transpose(0, 1))
+            vcs.append(vt[0].transpose(0, 1))
+        logits = _final_logits(params, x[:, -1:], cfg)[:, 0]
+        return logits, torch.stack(kcs), torch.stack(vcs)
 
 
 def extend_step(params: Params, cache: Cache, tokens, cfg: ModelConfig,

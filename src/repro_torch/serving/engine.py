@@ -78,6 +78,7 @@ from repro_torch.serving.costs import (
     spec_round_charges,
     spec_round_time,
 )
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.distributed.fault import make_injector
 from repro_torch.serving.kv_cache import PagedKVPool
@@ -768,83 +769,95 @@ class ServingEngine:
         it with real forwards, and prices it through the same
         `costs.hybrid_step_charges` the simulator charges - so on an
         identical workload both executors replay the identical schedule
-        (tests/test_engine_sim_parity.py, continuous rows)."""
+        (tests/test_engine_sim_parity.py, continuous rows).
+
+        Spans (repro_torch.tracing): `engine.step` around it all, then
+        `engine.plan`, an `engine.prefill` a chunk, `engine.decode`, and
+        `engine.sync` around each copy of sampled tokens to the host."""
         sched = self._sched
-        while True:
-            if self.clock >= self._kill_s:
-                self.kill(self._kill_s)
-                return False
-            self._admit_continuous(sched)
-            if self._lifecycle:
-                self._expire_sched(sched, self.clock)
-            if sched.cache is not None:
-                sched.cache.now_s = self.clock    # carbon lookup only
-            plan = sched.next_plan()
-            if plan is not None:
-                break
-            if not self.waiting:
-                if self._kill_s < float("inf"):
-                    self.kill(self._kill_s)
-                return False
-            self.clock = max(self.clock, self.waiting[0].arrival_s)
-        for victim in plan.preempted:
-            # scheduler already freed its ledger (and released its cache
-            # refs) and reset the seq for recompute; mirror on the real
-            # pools (tokens are kept - the re-prefill recomputes prompt +
-            # emitted prefix)
-            self._shared_tok.pop(victim.sid, None)
-            self.pool.free(victim.sid)
-            if self.draft_pool is not None:
-                self.draft_pool.free(victim.sid)
-        k = self.spec.num_draft_tokens
-        hs = hybrid_step_charges(
-            self.kind, self.cfg, self.draft_cfg, self.new_chip, self.old_chip,
-            plan.chunk_specs(), plan.decode_ctxs(), k, self.interconnect)
-        for chip_name, cost, rel_s in hs.charges:
-            self._charge(CHIP_DB[chip_name], cost, at_s=self.clock + rel_s)
-        t_end = self.clock + self._dilate(self.clock, hs.duration_s)
-        if sched.cache is not None:
-            sched.cache.now_s = t_end             # publish at step-end time
-        for ch in plan.chunks:
-            seq = ch.seq
-            r: EngineRequest = seq.payload
-            prefix = self._prefix_tokens(r, ch.ctx_before + ch.tokens)
-            if sched.cache is not None and not self.pool.has(seq.sid):
-                self._adopt_shared(sched.cache, seq)
-            fresh = not self.pool.has(seq.sid)
-            shared = self._shared_tok.get(seq.sid, 0)
-            logits = self._chunk_prefill(self.params, self.cfg, self.pool,
-                                         seq.sid, prefix, fresh,
-                                         shared_tok=shared)
-            if self.kind in ("spec", "dsd"):
-                self._chunk_prefill(self.draft_params, self.draft_cfg,
-                                    self.draft_pool, seq.sid, prefix,
-                                    fresh, shared_tok=shared)
-            if sched.complete_chunk(seq, ch.tokens):
-                if seq.emitted == 0:
-                    tok = int(self._sample(logits)[0])
-                    r.out_tokens.append(tok)
-                    r.ttft_s = t_end - r.arrival_s
-                    r.first_token_s = r.last_token_s = t_end
-                    if sched.note_first_token(seq):
-                        self._retire_continuous(seq)
-                        continue
-                self.last_token[seq.sid] = r.out_tokens[-1]
-        if plan.decodes:
-            if self.kind in ("spec", "dsd"):
-                self._continuous_spec_round(plan.decodes, t_end)
-            else:
-                self._continuous_decode(plan.decodes, t_end)
-        self.clock = t_end
-        return True
+        with tracing.span("engine.step") as step:
+            with tracing.span("engine.plan"):
+                while True:
+                    if self.clock >= self._kill_s:
+                        self.kill(self._kill_s)
+                        return False
+                    self._admit_continuous(sched)
+                    if self._lifecycle:
+                        self._expire_sched(sched, self.clock)
+                    if sched.cache is not None:
+                        sched.cache.now_s = self.clock    # carbon lookup only
+                    plan = sched.next_plan()
+                    if plan is not None:
+                        break
+                    if not self.waiting:
+                        if self._kill_s < float("inf"):
+                            self.kill(self._kill_s)
+                        return False
+                    self.clock = max(self.clock, self.waiting[0].arrival_s)
+                for victim in plan.preempted:
+                    # scheduler already freed its ledger (and released its
+                    # cache refs) and reset the seq for recompute; mirror on
+                    # the real pools (tokens are kept - the re-prefill
+                    # recomputes prompt + emitted prefix)
+                    self._shared_tok.pop(victim.sid, None)
+                    self.pool.free(victim.sid)
+                    if self.draft_pool is not None:
+                        self.draft_pool.free(victim.sid)
+                k = self.spec.num_draft_tokens
+                hs = hybrid_step_charges(
+                    self.kind, self.cfg, self.draft_cfg, self.new_chip, self.old_chip,
+                    plan.chunk_specs(), plan.decode_ctxs(), k, self.interconnect)
+                for chip_name, cost, rel_s in hs.charges:
+                    self._charge(CHIP_DB[chip_name], cost, at_s=self.clock + rel_s)
+                t_end = self.clock + self._dilate(self.clock, hs.duration_s)
+                if sched.cache is not None:
+                    sched.cache.now_s = t_end             # publish at step-end time
+            step.set("chunks", len(plan.chunks))
+            step.set("decodes", len(plan.decodes))
+            for ch in plan.chunks:
+                seq = ch.seq
+                r: EngineRequest = seq.payload
+                with tracing.span("engine.prefill"):
+                    prefix = self._prefix_tokens(r, ch.ctx_before + ch.tokens)
+                    if sched.cache is not None and not self.pool.has(seq.sid):
+                        self._adopt_shared(sched.cache, seq)
+                    fresh = not self.pool.has(seq.sid)
+                    shared = self._shared_tok.get(seq.sid, 0)
+                    logits = self._chunk_prefill(self.params, self.cfg, self.pool,
+                                                 seq.sid, prefix, fresh,
+                                                 shared_tok=shared)
+                    if self.kind in ("spec", "dsd"):
+                        self._chunk_prefill(self.draft_params, self.draft_cfg,
+                                            self.draft_pool, seq.sid, prefix,
+                                            fresh, shared_tok=shared)
+                    if sched.complete_chunk(seq, ch.tokens):
+                        if seq.emitted == 0:
+                            with tracing.span("engine.sync"):
+                                tok = int(self._sample(logits)[0])
+                            r.out_tokens.append(tok)
+                            r.ttft_s = t_end - r.arrival_s
+                            r.first_token_s = r.last_token_s = t_end
+                            if sched.note_first_token(seq):
+                                self._retire_continuous(seq)
+                                continue
+                        self.last_token[seq.sid] = r.out_tokens[-1]
+            if plan.decodes:
+                if self.kind in ("spec", "dsd"):
+                    self._continuous_spec_round(plan.decodes, t_end)
+                else:
+                    self._continuous_decode(plan.decodes, t_end)
+            self.clock = t_end
+            return True
 
     def _continuous_decode(self, decodes: "list[SchedSeq]",
                            t_end: float) -> None:
         sched = self._sched
         sids = [s.sid for s in decodes]
-        tokens = self._ints([self.last_token[s] for s in sids])
-        logits = self._decode_logits(self.pool, sids, tokens)
-        new = self._sample(logits)
+        with tracing.span("engine.decode"):
+            tokens = self._ints([self.last_token[s] for s in sids])
+            logits = self._decode_logits(self.pool, sids, tokens)
+        with tracing.span("engine.sync"):
+            new = self._sample(logits)
         for seq, tok in zip(decodes, new):
             r: EngineRequest = seq.payload
             r.out_tokens.append(int(tok))
