@@ -48,7 +48,7 @@ def main(argv=None) -> int:
         if not sample:
             print(json.dumps({"seed": seed, "judged": 0}), flush=True)
             continue
-        r = check.judge(w, cell.config, served, sample, control=True)
+        r = check.judge(cell.family, w, cell.config, served, sample, control=True)
         r.update(seed=seed, served_requests=sum(1 for s in served if s.times),
                  run_s=t1 - t0, judge_s=time.perf_counter() - t1,
                  memory_peak_bytes=view.peak)

@@ -56,34 +56,11 @@ class StepObs:
     tokens_out: int
 
 
-def model_config(cfg: dict):
-    """The program's ModelConfig with the configuration file's sizes."""
-    import dataclasses as dc
-
-    from repro_torch.configs import get_config
-    base = get_config(cfg["arch"])
-    attn = dc.replace(base.attn, num_heads=cfg["num_attention_heads"],
-                      num_kv_heads=cfg["num_key_value_heads"], head_dim=cfg["head_dim"],
-                      rope_theta=float(cfg["rope_theta"]))
-    out = dc.replace(base, num_layers=cfg["num_hidden_layers"], d_model=cfg["hidden_size"],
-                     vocab_size=cfg["vocab_size"], norm_eps=float(cfg["rms_norm_eps"]),
-                     tie_embeddings=cfg["tie_word_embeddings"], dtype=cfg["torch_dtype"],
-                     attn=attn)
-    if cfg["family"] == "moe":
-        moe = dc.replace(base.moe, num_experts=cfg["num_experts"],
-                         top_k=cfg["num_experts_per_tok"],
-                         d_ff_expert=cfg["moe_intermediate_size"],
-                         d_ff_shared=cfg["shared_expert_intermediate_size"],
-                         capacity_factor=float(cfg["capacity_factor"]))
-        out = dc.replace(out, d_ff=cfg["moe_intermediate_size"], moe=moe)
-    else:
-        out = dc.replace(out, d_ff=cfg["intermediate_size"])
-    if out.family != cfg["family"]:
-        raise ValueError(f"{cfg['arch']} is family {out.family}, the file says {cfg['family']}")
-    return out
-
-
-def build_engine(cfg: dict, params, kind: str, max_batch: int, seed: int, device):
+def build_engine(model_cfg, cfg: dict, params, prm: dict, seed: int, device):
+    """The engine of ModelConfig `model_cfg` (the family's, from the
+    configuration file `cfg`, whose `engine` holds its knobs) over
+    `params`, with the kind, `max_batch` and `old_chip` (a CHIP_DB name;
+    none if the key is absent) of the cell's workload file `prm`."""
     from repro_torch.models.layers import ExecConfig
     from repro_torch.serving.batching import BatchPolicy
     from repro_torch.serving.engine import ServingEngine
@@ -92,8 +69,9 @@ def build_engine(cfg: dict, params, kind: str, max_batch: int, seed: int, device
                          token_budget=e["token_budget"], block_size=e["block_size"])
     exec_cfg = ExecConfig(use_kernels=e["use_kernels"],
                           moe_group_size=cfg.get("moe_group_size", 4096))
-    return ServingEngine(model_config(cfg), params, kind=kind, new_chip=e["new_chip"],
-                         max_batch=max_batch, pool_blocks=e["pool_blocks"],
+    return ServingEngine(model_cfg, params, kind=prm["kind"], new_chip=e["new_chip"],
+                         old_chip=prm.get("old_chip"), max_batch=prm["max_batch"],
+                         pool_blocks=e["pool_blocks"],
                          block_size=e["block_size"], temperature=e["temperature"],
                          seed=seed, exec_cfg=exec_cfg, batching=policy, paged=e["paged"],
                          device=device)

@@ -3,13 +3,15 @@
 Everything that belongs to one configuration, traffic mix, cell or metric
 sits in a file of its own, found by name:
 
-    perfbench/configs/<config>.json     sizes, source, engine knobs
+    perfbench/configs/<config>.json     sizes, source, engine knobs, family
+    perfbench/families/<family>.py      the program's config, weights and
+                                        parameters, and the reference's logits
     perfbench/traffic/<traffic>.json    the mix: sizes, weights, arrivals
-    perfbench/workloads/<cell>.json     kind, rate, max_batch, lead-in
+    perfbench/workloads/<cell>.json     kind, old_chip, rate, max_batch, lead-in
     perfbench/metrics/<metric>.py       a reader: read(run) -> value or None
 
-so a new cell, configuration, mix or metric is new files and new entries in
-BENCHMARK.json, never an edit of a file that is there.
+so a new cell, configuration, family, mix or metric is new files and new
+entries in BENCHMARK.json, never an edit of a file that is there.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ class Cell:
     params: dict             # perfbench/workloads/<cell>.json
     end_to_end: tuple        # Metrics the --trace 0 run reports
     per_layer: tuple         # Metrics the --trace 1 run reports
+    family: object           # perfbench/families/<config's family>.py
 
 
 def _metric(entry: dict) -> Metric:
@@ -81,13 +84,25 @@ def load_cell(name: str, bench_path: pathlib.Path = BENCHMARK,
             raise ValueError(f"workloads/{name}.json names {key} {params.get(key)!r}, "
                              f"BENCHMARK.json {want!r}")
     e2e, layer = cell_metrics(bench, name)
-    return Cell(name, int(w["chips"]), config, mix, params, e2e, layer)
+    return Cell(name, int(w["chips"]), config, mix, params, e2e, layer,
+                family(config["family"], bench_dir))
+
+
+def _module(path: pathlib.Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def family(name: str, bench_dir: pathlib.Path = BENCH_DIR):
+    """The module perfbench/families/<name>.py (see families/__init__.py)."""
+    path = bench_dir / "families" / f"{name}.py"
+    if name.startswith("_") or not path.is_file():
+        raise FileNotFoundError(f"family {name!r} has no module: expected {path}")
+    return _module(path, f"perfbench_family_{name}")
 
 
 def reader(metric: str, bench_dir: pathlib.Path = BENCH_DIR):
     """The `read(run)` function of perfbench/metrics/<metric>.py."""
-    path = bench_dir / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"perfbench_metric_{metric}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _module(bench_dir / "metrics" / f"{metric}.py", f"perfbench_metric_{metric}").read

@@ -6,14 +6,15 @@ A decoder layer, as the configuration files state it (perfbench/configs):
                                           causal softmax(q k^T / sqrt(Dh)) v
     x' = h + FFN(RMSNorm(h) * g2)         SwiGLU: (silu(h Wg) * (h Wu)) Wd
 
-and logits = (RMSNorm(x_L) * gf) lm_head^T. For the moe family the FFN is
+and logits = (RMSNorm(x_L) * gf) lm_head^T. The FFN is the caller's to
+choose (`ffn`, one family's; perfbench/families): `swiglu` above, or `moe`,
 the routed mixture plus the shared expert, ungated: the router's softmax
 over the experts, the top-k of it renormalised to sum to 1, and a capacity
 dispatch. Tokens go through the experts in groups; a group of T tokens gives
 each expert max(int(T k cf / E), k) slots, taken by the group's (token, k)
 units in token order, and a unit that finds its expert's slots full is
-dropped. Which tokens form a group is the caller's to say (`groups`): it is
-the served run's schedule, not arithmetic.
+dropped. Which tokens form a group is the caller's to say (`flat_groups`):
+it is the served run's schedule, not arithmetic.
 
 `quant="fp8"` is the control: every product's inputs rounded to float8 e4m3
 (weights per output column, activations per row, keys and values per row),
@@ -145,14 +146,27 @@ def swiglu(P: Layerwise, l: int, x, names=("w_gate", "w_up", "w_down"), rows=163
     return out
 
 
-def logits(w: dict, cfg: dict, seqs: list[torch.Tensor], rows: list[torch.Tensor],
-           groups: list[list[tuple[int, torch.Tensor]]] | None = None,
-           quant: str | None = None) -> list[torch.Tensor]:
-    """The logits (len(rows[i]), V) at positions rows[i] of each sequence
-    seqs[i] (token ids fed, (S_i,) long), fp32.
+def flat_groups(groups: list[list[tuple[int, torch.Tensor]]], lens: list[int],
+                device) -> list[torch.Tensor]:
+    """Dispatch groups, each [(sequence, positions), ...] in dispatch order,
+    as rows of the sequences laid end to end (lengths `lens`), for `moe`.
+    Every position of every sequence has to be in one group."""
+    offs = [0]
+    for n in lens:
+        offs.append(offs[-1] + n)
+    flat = [torch.cat([offs[i] + p.to(device) for i, p in g]) for g in groups]
+    seen = torch.zeros(offs[-1], dtype=torch.long, device=device)
+    seen.index_add_(0, torch.cat(flat), torch.ones_like(torch.cat(flat)))
+    if not bool((seen == 1).all()):
+        raise ValueError("moe groups must hold every position exactly once")
+    return flat
 
-    moe: groups lists the dispatch groups, each [(sequence, positions), ...]
-    in dispatch order; every position of every sequence is in one group."""
+
+def logits(w: dict, cfg: dict, seqs: list[torch.Tensor], rows: list[torch.Tensor],
+           ffn=swiglu, quant: str | None = None) -> list[torch.Tensor]:
+    """The logits (len(rows[i]), V) at positions rows[i] of each sequence
+    seqs[i] (token ids fed, (S_i,) long), fp32. `ffn(P, l, h)` is a layer's
+    FFN on the normed rows h of all sequences laid end to end."""
     exact_fp32()
     P = Layerwise(w, quant)
     dev = w["embed"].device
@@ -164,13 +178,6 @@ def logits(w: dict, cfg: dict, seqs: list[torch.Tensor], rows: list[torch.Tensor
         offs.append(offs[-1] + n)
     x = w["embed"][torch.cat(seqs).to(dev)].float()
     pos = torch.cat([torch.arange(n, device=dev) for n in lens])
-    flat_groups = None
-    if cfg["family"] == "moe":
-        flat_groups = [torch.cat([offs[i] + p.to(dev) for i, p in g]) for g in groups]
-        seen = torch.zeros(offs[-1], dtype=torch.long, device=dev)
-        seen.index_add_(0, torch.cat(flat_groups), torch.ones_like(torch.cat(flat_groups)))
-        if not bool((seen == 1).all()):
-            raise ValueError("moe groups must hold every position exactly once")
     for l in range(L):
         h = rmsnorm(x, w["norm1"][l], eps)
         q = rope(P.mm(h, P.weight("wq", l)).view(-1, H, Dh), pos, cfg["rope_theta"])
@@ -184,10 +191,7 @@ def logits(w: dict, cfg: dict, seqs: list[torch.Tensor], rows: list[torch.Tensor
         x = x + P.mm(o.view(-1, H * Dh), P.weight("wo", l))
         del o
         h = rmsnorm(x, w["norm2"][l], eps)
-        if cfg["family"] == "moe":
-            x = x + moe(P, l, h, cfg, flat_groups)
-        else:
-            x = x + swiglu(P, l, h)
+        x = x + ffn(P, l, h)
         del h
     head = P.weight("lm_head").T if not P.quant else _fp8(w["lm_head"].float(), dim=-1).T
     out = []

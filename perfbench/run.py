@@ -36,7 +36,6 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 TRACE_S = 6.0          # seconds at the window's end a --trace 1 run profiles
 SAMPLE = 8             # requests the reference judges
 NO_READING = 1e30     # a gap when nothing could be judged: fails every limit
-KERNELS = ("flash_attention", "paged_decode_attention", "paged_prefill_attention")
 
 
 def use_checkout_caches() -> None:
@@ -76,11 +75,10 @@ def serve(cell, seed: int, seconds: float, trace: bool, t_start: float = T_START
 
     from perfbench.harness import drive, trace as tr
     from perfbench.harness.nvml import Nvml, card_uuid
-    from perfbench.harness.weights import make_weights, program_params
     from perfbench.traffic.generator import generate
     from repro_torch.kernels import paged_attention as pa
 
-    cfg, mix, prm = cell.config, cell.mix, cell.params
+    cfg, mix, prm, fam = cell.config, cell.mix, cell.params, cell.family
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -93,12 +91,12 @@ def serve(cell, seed: int, seconds: float, trace: bool, t_start: float = T_START
         except (OSError, RuntimeError) as e:
             log(f"NVML unavailable ({e}); energy_j_per_token is not read")
             nv = None
-        build.build_all(KERNELS)
+        build.build_all(fam.KERNELS)
     lead = float(prm.get("lead_s", 0.0))
     reqs = generate(mix, seed, cfg["vocab_size"], horizon_s=lead + seconds,
                     rate=float(prm.get("rate", 0.0)))
-    w = make_weights(cfg, seed, dev) if weights is None else weights
-    eng = drive.build_engine(cfg, program_params(w, cfg), prm["kind"], prm["max_batch"],
+    w = fam.make_weights(cfg, seed, dev) if weights is None else weights
+    eng = drive.build_engine(fam.model_config(cfg), cfg, fam.program_params(w, cfg), prm,
                              seed, dev)
     warm = drive.warm_up(eng, mix, cfg["vocab_size"], prm["max_batch"],
                          np.random.default_rng([int(seed) % 2 ** 63, 0x3A7E]))
@@ -174,8 +172,8 @@ def judged_checks(cell, view, w, served, seed: int) -> tuple[dict, dict]:
          "judged_tokens": sum(len(s.times) for s in sample)}
     try:
         if sample:
-            r.update(check.judge(w, cell.config, served, sample))
-    except check.ScheduleError as e:
+            r.update(check.judge(cell.family, w, cell.config, served, sample))
+    except check.JudgeError as e:
         log(f"reference: {e}")
     return {k: [r.get(k, NO_READING), lim] for k, lim in limits.items()}, r
 

@@ -37,17 +37,24 @@ def config(arch: str) -> dict:
 
 
 def cell(arch: str, arrivals: str = "poisson", rate: float = 40.0, max_batch: int = 6,
-         lead_s: float = 0.3, dtype: str = "float32") -> spec.Cell:
+         lead_s: float = 0.3, dtype: str = "float32", kind: str = "standalone",
+         old_chip: str | None = None) -> spec.Cell:
+    """A reduced cell of `arch`, reporting the metrics of the full cell of
+    its kind and arrivals."""
     mix = dict(copy.deepcopy(MIX), arrivals=arrivals, backlog=24)
     cfg = config(arch)
     cfg["torch_dtype"] = dtype
-    params = {"config": arch, "traffic": "tiny", "kind": "standalone", "chips": 1,
+    params = {"config": arch, "traffic": "tiny", "kind": kind, "chips": 1,
               "rate": rate, "max_batch": max_batch, "lead_s": lead_s,
               "checks": dict(CHECKS)}
+    if old_chip is not None:
+        params["old_chip"] = old_chip
     bench = json.loads(spec.BENCHMARK.read_text())
-    e2e, layer = spec.cell_metrics(bench, "yi-6b.sharegpt" if arrivals == "poisson"
-                                   else "qwen2-moe-a2.7b.offline")
-    return spec.Cell(f"{arch}.tiny", 1, cfg, mix, params, e2e, layer)
+    like = ("yi-6b.longbench.dpd" if kind == "dpd" else
+            "yi-6b.sharegpt" if arrivals == "poisson" else "qwen2-moe-a2.7b.offline")
+    e2e, layer = spec.cell_metrics(bench, like)
+    return spec.Cell(f"{arch}.tiny", 1, cfg, mix, params, e2e, layer,
+                     spec.family(cfg["family"]))
 
 
 def run_module():

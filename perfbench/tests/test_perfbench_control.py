@@ -31,13 +31,14 @@ def test_control_fails_where_the_program_passes_reduced(cell_name, monkeypatch):
     full = spec.load_cell(cell_name)
     backlog = full.mix["arrivals"] == "backlog"
     cell = cases.cell(full.config["arch"], arrivals="backlog" if backlog else "poisson",
-                      lead_s=0.3, max_batch=8, dtype="bfloat16")
+                      lead_s=0.3, max_batch=8, dtype="bfloat16", kind=full.params["kind"],
+                      old_chip=full.params.get("old_chip"))
     cell.params["checks"] = full.params["checks"]
     run = cases.run_module()
     for seed in SEEDS[:2]:
         view, w, served = run.serve(cell, seed, 1.5, False, device="cpu")
         judged = [s for s in served if s.finished]
-        r = check.judge(w, cell.config, served, judged, control=True)
+        r = check.judge(cell.family, w, cell.config, served, judged, control=True)
         assert limit_checks(cell, r), r
         for name in cell.params["checks"]:
             if name.endswith("_gap"):
@@ -55,7 +56,7 @@ def test_control_fails_at_the_cells_size(cell_name):
         view, w, served = run.serve(cell, seed, 30.0, False)
         judged = check.sample([s for s in served if s.times and s.times[-1] >= view.t_open],
                               seed, run.SAMPLE)
-        r = check.judge(w, cell.config, served, judged, control=True)
+        r = check.judge(cell.family, w, cell.config, served, judged, control=True)
         assert limit_checks(cell, r), r
         assert not limit_checks(cell, r, "control_"), r
         del w, served

@@ -30,7 +30,8 @@ def top_level_imports(path) -> set[str]:
 def test_the_scan_sees_every_entry_and_reader():
     rel = {str(p.relative_to(BENCH)) for p in SOURCES}
     assert {"run.py", "sweep.py", "calibrate.py", "reference/model.py",
-            "metrics/ttft_p95_ms.py", "metrics/mfu.lat.py", "harness/check.py"} <= rel
+            "metrics/ttft_p95_ms.py", "metrics/mfu.lat.py", "harness/check.py",
+            "families/dense.py", "families/moe.py"} <= rel
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(BENCH)))

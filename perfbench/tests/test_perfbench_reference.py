@@ -1,14 +1,16 @@
 """The plain reference against repro_torch on reduced dense and MoE configs,
 on the CPU in fp32: the logits of a prompt agree, and the tokens the engine
 serves through a whole open-loop run are the reference's best, with the
-MoE's dispatch groups rebuilt from the run's token timeline."""
+MoE's dispatch groups rebuilt from the run's token timeline (each through
+its family module, perfbench/families)."""
+import functools
+
 import numpy as np
 import perfbench_cases as cases
 import pytest
 import torch
 
-from perfbench.harness import check, drive
-from perfbench.harness.weights import make_weights, program_params
+from perfbench.harness import check, spec
 from perfbench.reference import model as ref
 from repro_torch.models import backbone
 from repro_torch.models.layers import ExecConfig
@@ -19,12 +21,16 @@ ARCHS = ["yi-6b", "qwen2-moe-a2.7b"]
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prompt_logits_match_the_program(arch):
     cfg = cases.config(arch)
-    w = make_weights(cfg, 2 ** 31 + 3, "cpu")
+    fam = spec.family(cfg["family"])
+    w = fam.make_weights(cfg, 2 ** 31 + 3, "cpu")
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg["vocab_size"], 37))
-    got, _ = backbone.prefill(program_params(w, cfg), {"tokens": toks[None]},
-                              drive.model_config(cfg), ExecConfig())
-    want = ref.logits(w, cfg, [toks], [torch.tensor([36])],
-                      [[(0, torch.arange(37))]] if cfg["family"] == "moe" else None)[0]
+    got, _ = backbone.prefill(fam.program_params(w, cfg), {"tokens": toks[None]},
+                              fam.model_config(cfg), ExecConfig())
+    ffn = ref.swiglu
+    if cfg["family"] == "moe":
+        ffn = functools.partial(ref.moe, cfg=cfg,
+                                groups=ref.flat_groups([[(0, torch.arange(37))]], [37], "cpu"))
+    want = ref.logits(w, cfg, [toks], [torch.tensor([36])], ffn)[0]
     torch.testing.assert_close(got.float(), want, rtol=1e-4, atol=1e-4)
 
 
@@ -37,18 +43,23 @@ def test_served_tokens_are_the_references_best(arch, monkeypatch):
     view, w, served = run.serve(cell, 2 ** 31 + 11, 1.5, False, device="cpu")
     done = [s for s in served if s.finished]
     assert len(done) >= 4 and sum(len(s.times) for s in done) >= 20
-    r = check.judge(w, cell.config, served, done)
+    r = check.judge(cell.family, w, cell.config, served, done)
     assert r["max_gap"] == 0.0 and r["agree"] == 1.0
     if arch.startswith("qwen"):
         # the decode groups matter: with the group order reversed, tokens
         # dropped for capacity change and the served tokens stop agreeing
-        groups = check.moe_groups([s for s in served if s.times])
-        flips = [g[::-1] if len(g) > 1 else g for g in groups]
         seqs = [s for s in served if s.times]
+        groups = cell.family.moe_groups(seqs)
+        flips = [g[::-1] if len(g) > 1 else g for g in groups]
         rows = [torch.arange(len(s.prompt) - 1, len(s.prompt) - 1 + len(s.times)) for s in seqs]
         feed = [check.fed(s) for s in seqs]
-        a = ref.logits(w, cell.config, feed, rows, groups)
-        b = ref.logits(w, cell.config, feed, rows, flips)
+        lens = [int(f.numel()) for f in feed]
+
+        def moe(g):
+            return functools.partial(ref.moe, cfg=cell.config,
+                                     groups=ref.flat_groups(g, lens, "cpu"))
+        a = ref.logits(w, cell.config, feed, rows, moe(groups))
+        b = ref.logits(w, cell.config, feed, rows, moe(flips))
         assert max(float((x - y).abs().max()) for x, y in zip(a, b)) > 1e-3
 
 

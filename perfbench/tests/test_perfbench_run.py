@@ -102,14 +102,18 @@ FAULTS = {
 }
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen2-moe-a2.7b", "yi-6b.dpd"])
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 def test_a_broken_timed_path_is_not_correct(run, monkeypatch, arch, fault):
+    """Each fault under each cell's engine kind (yi-6b.dpd: the dpd cell's
+    prefill pool, KV handoff and decode pool)."""
     cases.in_test_process(monkeypatch, run)
     owner, name, make = FAULTS[fault]
     monkeypatch.setattr(owner, name, make(getattr(owner, name)))
     backlog = arch.startswith("qwen")
-    cell = cases.cell(arch, arrivals="backlog" if backlog else "poisson", max_batch=8)
+    dpd = dict(kind="dpd", old_chip="t4") if arch.endswith(".dpd") else {}
+    cell = cases.cell(arch.removesuffix(".dpd"), arrivals="backlog" if backlog else "poisson",
+                      max_batch=8, **dpd)
     out = run.run_cell(cell, SEED, 1.5, False, device="cpu")
     assert out["correct"] is False
     assert any(c["value"] > c["limit"] for k, c in out["checks"].items() if k.endswith("_gap"))
@@ -143,11 +147,12 @@ def test_without_the_program_beside_it_no_result(tmp_path):
 def test_warm_up_covers_every_decode_batch(run):
     """The warm-up's outputs of 2 .. max_batch + 1 tokens take the decode
     batch through every size from max_batch to 1."""
-    from perfbench.harness import drive, weights
+    from perfbench.harness import drive
     cell = cases.cell("yi-6b", max_batch=5)
-    cfg = cell.config
-    w = weights.make_weights(cfg, 3, "cpu")
-    eng = drive.build_engine(cfg, weights.program_params(w, cfg), "standalone", 5, 3, "cpu")
+    cfg, fam = cell.config, cell.family
+    w = fam.make_weights(cfg, 3, "cpu")
+    eng = drive.build_engine(fam.model_config(cfg), cfg, fam.program_params(w, cfg),
+                             cell.params, 3, "cpu")
     sizes = []
     real = engine_mod.ServingEngine._decode_logits
 

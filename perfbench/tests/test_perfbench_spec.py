@@ -9,6 +9,7 @@ import perfbench_cases as cases  # noqa: F401  (puts the repo root on sys.path)
 import pytest
 
 from perfbench.harness import spec
+from repro_torch.core.carbon import CHIP_DB
 
 BENCH = json.loads(spec.BENCHMARK.read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -60,7 +61,11 @@ def test_cell_resolves_by_name(cell):
     assert set(c.config["reduced"]) <= set(c.config)
     assert not [k for k in c.config["reduced"] if k.endswith(("_size", "_dim", "_rank", "_heads"))
                 or k in ("num_experts_per_tok", "num_hidden_layers")]
-    assert c.params["max_batch"] == 64 and c.params["kind"] == "standalone"
+    assert c.params["max_batch"] == 64 and c.params["kind"] in ("standalone", "dpd")
+    # dpd hands decode to an older card: the cell's file names it
+    assert ("old_chip" in c.params) == (c.params["kind"] == "dpd")
+    assert c.params.get("old_chip") in (None, *CHIP_DB)
+    assert c.family.__file__.endswith(f"families/{c.config['family']}.py")
     names = {m.name for m in c.end_to_end}
     assert "setup_s" in names and len(names) >= 2 and c.per_layer
     for m in c.end_to_end + c.per_layer:
